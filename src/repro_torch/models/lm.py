@@ -1,0 +1,148 @@
+"""Decoder-only LM assembly (port of `repro/models/lm.py`) for the attention
+families.
+
+The parameter tree keeps the reference's stacked layout: `segments[i]` is a
+tuple with one dict per layer kind of the segment's repeating unit, and
+every leaf carries a leading `repeat` axis.  Where the reference scans over
+that axis, the port loops over it and indexes the stacked leaves (views, no
+copies).
+"""
+from __future__ import annotations
+
+from typing import Any, Optional
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import layers as L
+from repro_torch.models.common import resolve_device, rms_norm, uniform_scaled
+
+
+def stack_trees(trees: list):
+    """Stack a list of identical trees leaf by leaf along a new axis 0."""
+    first = trees[0]
+    if isinstance(first, dict):
+        return {k: stack_trees([t[k] for t in trees]) for k in first}
+    if isinstance(first, (list, tuple)):
+        return type(first)(stack_trees([t[i] for t in trees])
+                           for i in range(len(first)))
+    return torch.stack(trees)
+
+
+def _index_tree(tree, i: int):
+    """Leaf `i` along axis 0 of every leaf (views)."""
+    if isinstance(tree, dict):
+        return {k: _index_tree(v, i) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_index_tree(v, i) for v in tree)
+    return tree[i]
+
+
+# ------------------------------------------------------------------------ init
+def init_segment(gen, cfg: ModelConfig, unit: tuple[str, ...], repeat: int,
+                 device):
+    return stack_trees([tuple(L.init_layer(gen, cfg, kind, device) for kind in unit)
+                        for _ in range(repeat)])
+
+
+def init_params(gen: Optional[torch.Generator], cfg: ModelConfig, device="cuda"):
+    """The port's own random init (never compared with the reference's),
+    drawn from `gen` and placed on `device`.  With ``device="meta"`` it
+    yields shapes and dtypes only (`gen` unused)."""
+    device = resolve_device(device)
+    params: dict[str, Any] = {
+        "embed": uniform_scaled(gen, (cfg.padded_vocab, cfg.d_model), cfg.torch_dtype,
+                                cfg.d_model, device),
+        "final_norm": torch.zeros((cfg.d_model,), dtype=torch.float32, device=device),
+    }
+    params["segments"] = [init_segment(gen, cfg, unit, repeat, device)
+                          for unit, repeat in cfg.segments]
+    if not cfg.tie_embeddings:
+        params["lm_head"] = uniform_scaled(gen, (cfg.d_model, cfg.padded_vocab),
+                                           cfg.torch_dtype, cfg.d_model, device)
+    return params
+
+
+# -------------------------------------------------------------------- embedding
+def embed_tokens(params, cfg: ModelConfig, tokens, vision_embeds=None):
+    x = params["embed"][tokens]  # (B, S, D)
+    if vision_embeds is not None:
+        # VLM stub frontend: the first `P` positions carry precomputed patch
+        # embeddings
+        P = vision_embeds.shape[1]
+        x = torch.cat([vision_embeds.to(x.dtype), x[:, P:]], dim=1)
+    return x
+
+
+def unembed(params, cfg: ModelConfig, x):
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    return x @ head
+
+
+# ---------------------------------------------------------------------- forward
+def forward(params, cfg: ModelConfig, tokens, *, mrope_positions=None,
+            vision_embeds=None, make_cache=False, cache_cap=0):
+    """Full-sequence forward (prefill) at positions arange(S).
+    Returns (logits, caches|None); caches have the reference's layout,
+    `caches[seg][unit_idx][key]` with a leading repeat axis."""
+    B, S = tokens.shape
+    positions = torch.arange(S, dtype=torch.int32, device=tokens.device).expand(B, S)
+    ctx = L.SeqCtx(positions=positions, mrope_positions=mrope_positions,
+                   make_cache=make_cache, cache_cap=cache_cap or S,
+                   arange_positions=True)
+    x = embed_tokens(params, cfg, tokens, vision_embeds)
+    caches = []
+    for seg_params, (unit, repeat) in zip(params["segments"], cfg.segments):
+        per_layer = []
+        for r in range(repeat):
+            unit_params = _index_tree(seg_params, r)
+            unit_caches = []
+            for i, kind in enumerate(unit):
+                x, c = L.layer_forward(unit_params[i], x, cfg, ctx, kind)
+                unit_caches.append(c)
+            per_layer.append(tuple(unit_caches))
+        caches.append(stack_trees(per_layer) if make_cache else None)
+    logits = unembed(params, cfg, x)
+    return logits, (caches if make_cache else None)
+
+
+# ----------------------------------------------------------------------- decode
+def decode_step(params, cfg: ModelConfig, token, pos, caches, *,
+                mrope_positions=None):
+    """One decode step over the ring caches. token: (B,) int32; pos: (B,)
+    int32 absolute position; caches: as produced by forward(make_cache=True).
+    Returns (logits, caches)."""
+    positions = pos[:, None]  # (B, 1)
+    ctx = L.SeqCtx(positions=positions, mrope_positions=mrope_positions)
+    x = params["embed"][token][:, None, :]  # (B, 1, D)
+
+    new_caches = []
+    for seg_params, seg_cache, (unit, repeat) in zip(
+            params["segments"], caches, cfg.segments):
+        per_layer = []
+        for r in range(repeat):
+            unit_params = _index_tree(seg_params, r)
+            unit_cache = _index_tree(seg_cache, r)
+            new_unit_cache = []
+            for i, kind in enumerate(unit):
+                x, c = L.layer_decode(unit_params[i], x, unit_cache[i], cfg, ctx, kind)
+                new_unit_cache.append(c)
+            per_layer.append(tuple(new_unit_cache))
+        new_caches.append(stack_trees(per_layer))
+    logits = unembed(params, cfg, x)[:, 0]  # (B, V)
+    return logits, new_caches
+
+
+# ------------------------------------------------------------------ cache specs
+def cache_specs(cfg: ModelConfig, batch: int, cap: int):
+    """(shape, dtype) tree matching forward(make_cache=True) output."""
+    segs = []
+    for unit, repeat in cfg.segments:
+        unit_specs = tuple(
+            {k: ((repeat, *shape), dt)
+             for k, (shape, dt) in L.layer_cache_spec(cfg, kind, batch, cap).items()}
+            for kind in unit
+        )
+        segs.append(unit_specs)
+    return segs
