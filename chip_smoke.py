@@ -11,17 +11,22 @@ run outside a checkout of the repository):
    the port built from `src/repro_torch/csrc/` (one nvcc per source, all
    started together);
 2. kernels: each kernel against its plain PyTorch version on the card, at
-   the main path's shapes and a sweep of others (fp32 / bf16, head dim 64 /
-   128, lengths 1 and non-multiples of the page size, a prefill tail, a
-   sliding window), with the kernel's, the plain version's and, where one
-   PyTorch call computes the same function, that call's time;
+   the main path's shapes and a sweep of the edges of each design (fp32 /
+   bf16; paged decode: lengths 0 and 1, at and +-1 around the split-KV
+   boundaries, full tables, a long context, G of 1 to 16, head dim 64 /
+   128; prefill: S of 1 to 512 around the 64-row tiles, sliding windows,
+   non-causal, head dim 32 / 64 / 128, G of 1 / 4 / 8), with the kernel's,
+   the plain version's and a PyTorch call's time beside the bound, at the
+   main path's shapes and at one long shape each (`[timing]` lines: a
+   4000-token conversation at batch 1, a 4096-token prompt);
 3. main path at full width on llama3.2-1b (random weights from a seed):
    `Engine.register_model`, a cold then a warm `Engine.load`, prefill of 4
    prompts of lengths 512/384/200/64, 1 + 32 decode steps under
    `torch.cuda.set_sync_debug_mode("error")`, a second instance and 8 fused
    `decode_many` steps.  Launch counters are zeroed just before and read
    just after; the decode logits are then held against the same run with
-   the plain paged attention (`attn_mode="ref"`).
+   the plain paged attention (`attn_mode="ref"`), and `torch.profiler`
+   splits a warm prefill and 8 decode steps by kernel (`[profile]` lines).
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -95,7 +100,7 @@ def setup():
         f"{time.perf_counter() - t0:.1f} s")
     for name, text in logs.items():
         for line in text.splitlines():
-            if "registers" in line or "spill" in line:
+            if any(w in line for w in ("registers", "spill", "wgmma", "Warning")):
                 log(f"[build] {name}: {line.strip()}")
     return smi
 
@@ -113,80 +118,134 @@ def _paged_inputs(gen, dtype, B, H, K, hd, T, N, lengths, dev):
     return q, kp, vp, tables, lens
 
 
+def _check(name: str, out, ref, dt: str, desc: str) -> float:
+    """Max abs error of a kernel's output against its plain version; raises
+    past the tolerance."""
+    err = float((out.float() - ref.float()).abs().max())
+    line = f"[kernel] {name} {desc}: max_abs_err {err:.3e} (tol {TOL[dt]:g})"
+    log(line)
+    if not err < TOL[dt]:
+        raise AssertionError(f"{name} disagrees with its plain version: {line}")
+    return err
+
+
+def _timing_row(name: str, label: str, dt: str, kernel, plain, library, lib_label: str,
+                nbytes: int, flops: int, err: float) -> dict:
+    """Kernel, plain-version and library times of one shape beside its bound,
+    achieved rate and share of the bound."""
+    ms = cuda_time_ms(kernel)
+    plain_ms = cuda_time_ms(plain)
+    library_ms = cuda_time_ms(library)
+    bound_ms, bound_by = _bound(nbytes, flops, dt)
+    rate = (f"{nbytes / ms / 1e9:.3f} TB/s" if bound_by == "bytes"
+            else f"{flops / ms / 1e9:.1f} TFLOP/s")
+    log(f"[timing] {name} {label}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"{lib_label} {library_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by}); "
+        f"achieved {rate}, {bound_ms / ms:.3f} of the bound, "
+        f"{ms / library_ms:.2f}x the library call")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": library_ms}
+
+
 def check_kernels() -> dict:
-    """Every kernel against its plain version; returns the main-path rows."""
+    """Every kernel against its plain version over a sweep of shapes; times
+    the main-path and long-context shapes.  Returns the main-path rows."""
     import torch
     import torch.nn.functional as F
 
     from repro_torch.kernels import ops
+    from repro_torch.kernels.paged_attention import split_plan
     from repro_torch.kernels.ref import flash_attention_ref, paged_attention_ref
 
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(0)
     rows = {}
 
-    # K1: (dtype, B, H, K, hd, T, N, lengths); the first is the main path's
-    # decode shape (llama3.2-1b, lengths after prefill + decode)
+    # K1: (label, dtype, B, H, K, hd, T, N, lengths).  Timed: the main path's
+    # decode shape (llama3.2-1b, lengths after prefill + decode) and one long
+    # conversation at batch 1.  The rest put lengths at split boundaries and
+    # +-1 of them, a full table, length 0 and 1, G of 1 / 4 / 8 / 16.
+    st16, _ = split_plan(64, 16)
+    st32, _ = split_plan(8, 32)
     paged_cases = [
-        ("bfloat16", 4, 32, 8, 64, 16, 64, (545, 417, 233, 97)),
-        ("float32", 4, 32, 8, 64, 16, 64, (1, 17, 200, 1024)),
-        ("bfloat16", 4, 32, 4, 128, 16, 64, (1, 33, 513, 1000)),
-        ("float32", 3, 32, 4, 128, 16, 32, (5, 16, 509)),
-        ("bfloat16", 2, 16, 1, 128, 32, 4, (1, 100)),
+        ("main", "bfloat16", 4, 32, 8, 64, 16, 64, (545, 417, 233, 97)),
+        ("long", "bfloat16", 1, 32, 8, 64, 16, 256, (4000,)),
+        ("", "bfloat16", 4, 32, 8, 64, 16, 64, (st16 - 1, st16, st16 + 1, 1)),
+        ("", "bfloat16", 4, 32, 8, 64, 16, 64, (2 * st16 - 1, 2 * st16, 2 * st16 + 1, 1024)),
+        ("", "float32", 4, 32, 8, 64, 16, 64, (1, 17, 200, 1024)),
+        ("", "float32", 4, 32, 8, 64, 16, 64, (st16 - 1, st16 + 1, 0, 3 * st16)),
+        ("", "bfloat16", 4, 32, 4, 128, 16, 64, (1, 33, 513, 1000)),
+        ("", "float32", 3, 32, 4, 128, 16, 32, (5, 16, 509)),
+        ("", "bfloat16", 2, 16, 1, 128, 32, 4, (1, 100)),
+        ("", "bfloat16", 2, 8, 8, 64, 16, 16, (st16, 256)),
+        ("", "float32", 2, 8, 8, 128, 16, 16, (st16 + 1, 255)),
+        ("", "float32", 3, 32, 8, 64, 32, 8, (st32 - 1, st32, 256)),
+        ("", "bfloat16", 1, 32, 8, 128, 16, 256, (4096,)),
     ]
-    for i, (dt, B, H, K, hd, T, N, lengths) in enumerate(paged_cases):
+    for label, dt, B, H, K, hd, T, N, lengths in paged_cases:
         dtype = getattr(torch, dt)
         args = _paged_inputs(gen, dtype, B, H, K, hd, T, N, lengths, dev)
         out = ops.paged_attention(*args)
         ref = paged_attention_ref(*args)
         torch.cuda.synchronize()
-        err = float((out.float() - ref.float()).abs().max())
-        ok = err < TOL[dt]
-        line = (f"[kernel] paged_attention {dt} B{B} H{H} K{K} hd{hd} T{T} N{N} "
-                f"lengths {list(lengths)}: max_abs_err {err:.3e} (tol {TOL[dt]:g})")
-        if i == 0:
-            ms = cuda_time_ms(lambda: ops.paged_attention(*args))
-            plain_ms = cuda_time_ms(lambda: paged_attention_ref(*args))
-            # yardstick only: SDPA over K/V gathered to dense beforehand (the
-            # gather is not timed), masked by length
-            q, kp, vp, tables, lens = args
-            kd = kp[tables.long()].reshape(B, N * T, K, hd).transpose(1, 2)
-            vd = vp[tables.long()].reshape(B, N * T, K, hd).transpose(1, 2)
-            kd = kd.repeat_interleave(H // K, dim=1)
-            vd = vd.repeat_interleave(H // K, dim=1)
-            mask = (torch.arange(N * T, device=dev)[None, :] < lens[:, None].long())
-            mask = mask[:, None, None, :]
-            sdpa_ms = cuda_time_ms(lambda: F.scaled_dot_product_attention(
-                q[:, :, None], kd, vd, attn_mask=mask))
-            live = sum(lengths)
-            nbytes = (2 * live * K * hd * args[1].element_size()   # K and V rows read
-                      + 2 * B * H * hd * q.element_size()          # q read, out written
-                      + sum(math.ceil(n / T) for n in lengths) * 4 + B * 4)
-            flops = 4 * live * H * hd
-            bound_ms, bound_by = _bound(nbytes, flops, dt)
-            line += (f", kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.5f} ms "
-                     f"({bound_by}), sdpa on pre-gathered dense K/V {sdpa_ms:.4f} ms")
+        err = _check("paged_attention", out, ref, dt,
+                     f"{dt} B{B} H{H} K{K} hd{hd} T{T} N{N} lengths {list(lengths)}")
+        if not label:
+            continue
+        # yardstick only: SDPA over K/V gathered to dense beforehand (the
+        # gather is not timed), masked by length
+        q, kp, vp, tables, lens = args
+        kd = kp[tables.long()].reshape(B, N * T, K, hd).transpose(1, 2)
+        vd = vp[tables.long()].reshape(B, N * T, K, hd).transpose(1, 2)
+        kd = kd.repeat_interleave(H // K, dim=1)
+        vd = vd.repeat_interleave(H // K, dim=1)
+        mask = (torch.arange(N * T, device=dev)[None, :] < lens[:, None].long())
+        mask = mask[:, None, None, :]
+        live = sum(lengths)
+        nbytes = (2 * live * K * hd * kp.element_size()   # K and V rows read
+                  + 2 * B * H * hd * q.element_size()     # q read, out written
+                  + sum(math.ceil(n / T) for n in lengths) * 4 + B * 4)
+        row = _timing_row(
+            "paged_attention", f"{label} {dt} B{B} H{H} K{K} hd{hd} T{T} N{N} "
+            f"lengths {list(lengths)}", dt,
+            lambda: ops.paged_attention(*args), lambda: paged_attention_ref(*args),
+            lambda: F.scaled_dot_product_attention(q[:, :, None], kd, vd, attn_mask=mask),
+            "sdpa on pre-gathered dense K/V", nbytes, 4 * live * H * hd, err)
+        if label == "main":
+            # no single PyTorch call does paged attention: the gathered SDPA
+            # above is printed, not reported as the library time
             rows["paged_attention"] = {
                 "name": "paged_attention", "route": "cuda",
                 "source": "src/repro_torch/csrc/paged_attention.cu",
                 "replaces": "src/repro/kernels/paged_attention.py:120",
-                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
-        log(line)
-        if not ok:
-            raise AssertionError(f"paged_attention disagrees with its plain version: {line}")
+                **row, "library_ms": None}
 
-    # K2: (dtype, B, S, H, K, hd, causal, window); the first is the main
-    # path's prefill shape (llama3.2-1b, 4 prompts padded to 512)
+    # K2: (label, dtype, B, S, H, K, hd, causal, window).  Timed: the main
+    # path's prefill (llama3.2-1b, 4 prompts padded to 512) and one 4k-token
+    # prompt.  The rest: S at and around the 64-row tiles (1, 63, 64, 65,
+    # 129, 300), windows spanning several tiles, non-causal, hd 32 / 64 /
+    # 128, G of 1 / 4 / 8.
     flash_cases = [
-        ("bfloat16", 4, 512, 32, 8, 64, True, 0),
-        ("float32", 4, 512, 32, 8, 64, True, 0),
-        ("bfloat16", 2, 300, 32, 8, 64, True, 0),
-        ("float32", 2, 300, 32, 4, 128, True, 64),
-        ("bfloat16", 2, 512, 32, 4, 128, True, 64),
-        ("float32", 1, 200, 8, 8, 64, False, 0),
+        ("main", "bfloat16", 4, 512, 32, 8, 64, True, 0),
+        ("long", "bfloat16", 1, 4096, 32, 8, 64, True, 0),
+        ("", "float32", 4, 512, 32, 8, 64, True, 0),
+        ("", "bfloat16", 2, 300, 32, 8, 64, True, 0),
+        ("", "float32", 2, 300, 32, 4, 128, True, 64),
+        ("", "bfloat16", 2, 512, 32, 4, 128, True, 64),
+        ("", "float32", 1, 200, 8, 8, 64, False, 0),
+        ("", "bfloat16", 2, 1, 8, 2, 64, True, 0),
+        ("", "bfloat16", 2, 63, 8, 2, 64, True, 0),
+        ("", "bfloat16", 2, 64, 8, 2, 64, True, 0),
+        ("", "bfloat16", 2, 65, 8, 2, 64, True, 0),
+        ("", "bfloat16", 2, 129, 8, 2, 128, True, 0),
+        ("", "bfloat16", 2, 300, 8, 2, 64, True, 64),
+        ("", "bfloat16", 1, 200, 8, 8, 64, False, 0),
+        ("", "bfloat16", 1, 129, 8, 1, 128, False, 0),
+        ("", "bfloat16", 2, 300, 8, 1, 32, True, 0),
+        ("", "bfloat16", 1, 65, 4, 4, 32, True, 16),
+        ("", "bfloat16", 1, 257, 8, 8, 128, True, 0),
     ]
-    for i, (dt, B, S, H, K, hd, causal, window) in enumerate(flash_cases):
+    for label, dt, B, S, H, K, hd, causal, window in flash_cases:
         dtype = getattr(torch, dt)
         q = torch.randn((B, S, H, hd), generator=gen).to(dev, dtype)
         k = torch.randn((B, S, K, hd), generator=gen).to(dev, dtype)
@@ -194,30 +253,26 @@ def check_kernels() -> dict:
         out = ops.flash_attention(q, k, v, causal=causal, window=window)
         ref = flash_attention_ref(q, k, v, causal=causal, window=window)
         torch.cuda.synchronize()
-        err = float((out.float() - ref.float()).abs().max())
-        ok = err < TOL[dt]
-        line = (f"[kernel] flash_attention {dt} B{B} S{S} H{H} K{K} hd{hd} "
-                f"causal={causal} window={window}: max_abs_err {err:.3e} (tol {TOL[dt]:g})")
-        if i == 0:
-            ms = cuda_time_ms(lambda: ops.flash_attention(q, k, v, causal=True))
-            plain_ms = cuda_time_ms(lambda: flash_attention_ref(q, k, v, causal=True))
-            qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-            library_ms = cuda_time_ms(lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=True, enable_gqa=True))
-            nbytes = 2 * (B * S * H * hd + B * S * K * hd) * q.element_size()
-            flops = 4 * B * H * hd * (S * (S + 1) // 2)  # causal: visible pairs only
-            bound_ms, bound_by = _bound(nbytes, flops, dt)
-            line += (f", kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.5f} ms "
-                     f"({bound_by}), sdpa {library_ms:.4f} ms")
+        desc = f"{dt} B{B} S{S} H{H} K{K} hd{hd} causal={causal} window={window}"
+        err = _check("flash_attention", out, ref, dt, desc)
+        if not label:
+            continue
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        row = _timing_row(
+            "flash_attention", f"{label} {desc}", dt,
+            lambda: ops.flash_attention(q, k, v, causal=True),
+            lambda: flash_attention_ref(q, k, v, causal=True),
+            lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                   enable_gqa=True),
+            "sdpa", 2 * (B * S * H * hd + B * S * K * hd) * q.element_size(),
+            4 * B * H * hd * (S * (S + 1) // 2),  # causal: visible pairs only
+            err)
+        del ref
+        if label == "main":
             rows["flash_attention"] = {
                 "name": "flash_attention", "route": "cuda",
                 "source": "src/repro_torch/csrc/flash_attention.cu",
-                "replaces": "src/repro/kernels/flash_attention.py:102",
-                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms}
-        log(line)
-        if not ok:
-            raise AssertionError(f"flash_attention disagrees with its plain version: {line}")
+                "replaces": "src/repro/kernels/flash_attention.py:102", **row}
     return rows
 
 
@@ -384,15 +439,37 @@ def main_path(cfg=None, device="cuda") -> dict:
     return counts
 
 
-def profile_decode(eng, cfg, batch, steps: int = 8):
-    """Where a decode step's time goes: torch.profiler over `steps` steps of
-    a fresh instance (outside the counted main path)."""
-    import torch
+def _device_ms(prof, reps: int) -> tuple[dict[str, float], int]:
+    """Device time per repetition of each kernel a profile saw, by name, and
+    the number of kernels."""
     from torch.autograd import DeviceType
+
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    by_name: dict[str, float] = {}
+    for e in kernels:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3 / reps
+    return by_name, len(kernels)
+
+
+def profile_decode(eng, cfg, batch, steps: int = 8):
+    """Where the time goes: torch.profiler over a warm prefill and `steps`
+    decode steps of a fresh instance (outside the counted main path)."""
+    import torch
     from torch.profiler import ProfilerActivity, profile
 
     inst = eng.start_instance(cfg.name, max_blocks_per_seq=64, num_pages=256)
-    tok = inst.prefill(batch, lengths=PROMPT_LENS).argmax(-1).to(torch.int32)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        tok = inst.prefill(batch, lengths=PROMPT_LENS).argmax(-1).to(torch.int32)
+        torch.cuda.synchronize()
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+    by_name, _ = _device_ms(prof, 1)
+    if by_name:
+        busy_ms = sum(by_name.values())
+        k2_ms = sum(t for n, t in by_name.items() if "flash_bf16_kernel" in n)
+        log(f"[profile] prefill B={len(PROMPT_LENS)} S={max(PROMPT_LENS)} (profiled): wall "
+            f"{prefill_ms:.3f} ms, device busy {busy_ms:.3f} ms, K2 {k2_ms:.3f} ms")
     tok = inst.decode(tok).argmax(-1).to(torch.int32)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -402,18 +479,17 @@ def profile_decode(eng, cfg, batch, steps: int = 8):
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / steps
     inst.finish()
-    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    if not kernels:
+    by_name, n_kernels = _device_ms(prof, steps)
+    if not by_name:
         log("[profile] decode: device time not measured (the profiler saw no CUDA events)")
         return
-    by_name: dict[str, float] = {}
-    for e in kernels:
-        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3 / steps
     busy_ms = sum(by_name.values())
+    k1_ms = sum(t for n, t in by_name.items()
+                if "paged_split_kernel" in n or "paged_combine_kernel" in n)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
     log(f"[profile] decode B={len(PROMPT_LENS)} (profiled): wall {wall_ms:.3f} ms/step, "
         f"device busy {busy_ms:.3f} ms/step, idle share {1 - busy_ms / wall_ms:.3f}, "
-        f"{len(kernels) / steps:.0f} kernels/step; top: "
+        f"{n_kernels / steps:.0f} kernels/step, K1 (split + combine) {k1_ms:.3f} ms/step; top: "
         + "; ".join(f"{n[:60]} {t:.3f} ms" for n, t in top))
 
 

@@ -6,7 +6,9 @@ q (B, S, H, hd); k, v (B, S, K, hd) with H = K * G; any S (tails are
 masked in the kernel; the TPU kernel needed S to be a block multiple).
 
 A CPU tensor runs the plain version (`ref.flash_attention_ref`); a CUDA
-tensor launches the kernel on the current stream, or raises.
+tensor launches the kernel of its dtype on the current stream, or raises:
+bfloat16 runs the tensor-core kernel, float32 the CUDA-core one (tensor-core
+products would miss fp32's tolerance).  There is no fallback between them.
 `flash_attention.launches` counts kernel launches.
 """
 from __future__ import annotations

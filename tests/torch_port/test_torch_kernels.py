@@ -24,7 +24,8 @@ import torch  # noqa: E402
 from repro.kernels import ops as ref_ops  # noqa: E402
 from repro.models.common import attention_dense as ref_attention_dense  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
-from repro_torch.kernels.paged_attention import check_cuda_inputs  # noqa: E402
+from repro_torch.kernels.paged_attention import (check_cuda_inputs, split_plan,  # noqa: E402
+                                                 split_scratch_shapes)
 from repro_torch.kernels.ref import flash_attention_ref, paged_attention_ref  # noqa: E402
 
 from torch_port_helpers import TOL, max_err, to_torch  # noqa: E402
@@ -172,3 +173,21 @@ def test_wrapper_input_checks_reject_what_the_kernel_cannot_take():
     check_cuda_inputs({"q": a, "t": torch.zeros(3, dtype=torch.int32)},
                       {"q": (torch.float32,), "t": (torch.int32,)})
 
+
+
+@pytest.mark.parametrize("N,T", [(64, 16), (256, 16), (8, 32), (4, 64), (3, 128), (85, 48),
+                                 (1, 1), (7, 5)])
+def test_split_plan_covers_the_table_in_whole_pages(N, T):
+    """The split-KV grid: splits of whole pages, at least 64 tokens, covering
+    the table's N * T slots with no split wholly past them."""
+    st, splits = split_plan(N, T)
+    assert st % T == 0 and st >= 64 and st - T < 64
+    assert (splits - 1) * st < N * T <= splits * st
+
+
+def test_split_scratch_follows_the_static_shapes_only():
+    st, splits = split_plan(64, 16)  # llama3.2-1b's main path: 64 pages of 16
+    assert (st, splits) == (64, 16)
+    shapes = split_scratch_shapes(4, 32, 64, splits)
+    assert shapes == {"acc": (4, 32, 16, 64), "m": (4, 32, 16), "l": (4, 32, 16)}
+    assert split_plan(256, 16) == (64, 64)  # one 4k-token conversation
