@@ -33,8 +33,9 @@
 // tensor cores.  Tiles wholly in the future or wholly behind the window
 // are never loaded; the elementwise mask runs only on tiles that straddle
 // the diagonal, the window's edge or S.  The online softmax runs in the
-// log2 domain on the accumulator fragments, a row's max and sum reducing
-// over the 4 lanes that share it.  Heavy (late) query tiles launch first,
+// log2 domain on the accumulator fragments (one FFMA and one ex2.approx
+// per score: at hd 64 the exponentials cost about as much as the
+// products), a row's max and sum reducing over the 4 lanes that share it.  Heavy (late) query tiles launch first,
 // so the causal triangle leaves no tail of idle SMs.  Any S is taken.
 // Loads by TMA, warp specialisation and GQA packing are later work.
 //
@@ -211,6 +212,13 @@ __device__ __forceinline__ void wgmma_rs<128>(float* d, const uint32_t* a, uint6
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// 2^x on the special-function unit, subnormal results flushed to zero
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // lo in the low half
   return *reinterpret_cast<const uint32_t*>(&v);
@@ -314,17 +322,17 @@ flash_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __re
     mx_hi = fmaxf(m_hi, mx_hi * scale_log2);
     const float base_lo = mx_lo == -INFINITY ? 0.f : mx_lo;  // fully masked so far
     const float base_hi = mx_hi == -INFINITY ? 0.f : mx_hi;
-    const float corr_lo = exp2f(m_lo - base_lo);
-    const float corr_hi = exp2f(m_hi - base_hi);
+    const float corr_lo = exp2_ftz(m_lo - base_lo);
+    const float corr_hi = exp2_ftz(m_hi - base_hi);
     m_lo = mx_lo;
     m_hi = mx_hi;
     float sum_lo = 0.f, sum_hi = 0.f;
 #pragma unroll
     for (int j = 0; j < NT; ++j) {
-      s[4 * j] = exp2f(fmaf(s[4 * j], scale_log2, -base_lo));
-      s[4 * j + 1] = exp2f(fmaf(s[4 * j + 1], scale_log2, -base_lo));
-      s[4 * j + 2] = exp2f(fmaf(s[4 * j + 2], scale_log2, -base_hi));
-      s[4 * j + 3] = exp2f(fmaf(s[4 * j + 3], scale_log2, -base_hi));
+      s[4 * j] = exp2_ftz(fmaf(s[4 * j], scale_log2, -base_lo));
+      s[4 * j + 1] = exp2_ftz(fmaf(s[4 * j + 1], scale_log2, -base_lo));
+      s[4 * j + 2] = exp2_ftz(fmaf(s[4 * j + 2], scale_log2, -base_hi));
+      s[4 * j + 3] = exp2_ftz(fmaf(s[4 * j + 3], scale_log2, -base_hi));
       sum_lo += s[4 * j] + s[4 * j + 1];
       sum_hi += s[4 * j + 2] + s[4 * j + 3];
     }
