@@ -26,7 +26,25 @@ run outside a checkout of the repository):
    `decode_many` steps.  Launch counters are zeroed just before and read
    just after; the decode logits are then held against the same run with
    the plain paged attention (`attn_mode="ref"`), and `torch.profiler`
-   splits a warm prefill and 8 decode steps by kernel (`[profile]` lines).
+   splits a warm prefill and 8 decode steps by kernel (`[profile]` lines);
+4. `[serverless]`: the single-engine `Gateway` at full width over
+   llama3.2-1b and deepseek-7b (weights drawn once each, on the card from a
+   seeded generator, kept in page-locked host memory and handed to every
+   engine as its `init_fn`), one pool that holds deepseek-7b and its KV but
+   not both models, a seeded Poisson trace of 10 requests (prompt 256,
+   16 greedy tokens) under a fixed 10 s keep-alive: warm starts, full h2d
+   cold starts and cold starts that reuse part of the model from the pool.
+   Every load's bytes are checked against the model's, the first request of
+   each model is held against the plain attention path, launch counts
+   against the requests, and a crash must give the card's memory back;
+5. `[fleet]`: `FleetGateway` over two engines on the card under the seeded
+   `chaos_schedule` (an h2d stall and a prefetch-worker death per engine, a
+   crash and a recovery), host tiers bounded so that released tensors
+   spill to the persistent store; then the recovered engine serves a
+   `Gateway` replay whose next-model hints promote spilled tensors while
+   the current request runs;
+6. `[launcher]`: ``python -m repro_torch.launch.serve --trace poisson
+   --n-engines 2 --chaos`` at the launcher's own smoke sizes, on the card.
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -34,8 +52,10 @@ The line before the last is the kernel table as JSON; the last line is
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -149,7 +169,8 @@ def _timing_row(name: str, label: str, dt: str, kernel, plain, library, lib_labe
 
 def check_kernels() -> dict:
     """Every kernel against its plain version over a sweep of shapes; times
-    the main-path and long-context shapes.  Returns the main-path rows."""
+    the main-path, long-context and deepseek-7b shapes.  Returns the rows of
+    the main path's and deepseek-7b's shapes, keyed (kernel, label)."""
     import torch
     import torch.nn.functional as F
 
@@ -181,6 +202,10 @@ def check_kernels() -> dict:
         ("", "float32", 2, 8, 8, 128, 16, 16, (st16 + 1, 255)),
         ("", "float32", 3, 32, 8, 64, 32, 8, (st32 - 1, st32, 256)),
         ("", "bfloat16", 1, 32, 8, 128, 16, 256, (4096,)),
+        # deepseek-7b's decode in [serverless]: MHA (G 1), hd 128, B 1, the
+        # last step of a 256-token prompt and 16 greedy tokens
+        ("deepseek-7b", "bfloat16", 1, 32, 32, 128, 16, 64,
+         (SERVERLESS_PROMPT + SERVERLESS_GEN,)),
     ]
     for label, dt, B, H, K, hd, T, N, lengths in paged_cases:
         dtype = getattr(torch, dt)
@@ -211,14 +236,14 @@ def check_kernels() -> dict:
             lambda: ops.paged_attention(*args), lambda: paged_attention_ref(*args),
             lambda: F.scaled_dot_product_attention(q[:, :, None], kd, vd, attn_mask=mask),
             "sdpa on pre-gathered dense K/V", nbytes, 4 * live * H * hd, err)
-        if label == "main":
+        if label in ("main", "deepseek-7b"):
             # no single PyTorch call does paged attention: the gathered SDPA
             # above is printed, not reported as the library time
-            rows["paged_attention"] = {
+            rows[("paged_attention", label)] = {
                 "name": "paged_attention", "route": "cuda",
                 "source": "src/repro_torch/csrc/paged_attention.cu",
                 "replaces": "src/repro/kernels/paged_attention.py:120",
-                **row, "library_ms": None}
+                "shape": SHAPE_NOTES[label], **row, "library_ms": None}
 
     # K2: (label, dtype, B, S, H, K, hd, causal, window).  Timed: the main
     # path's prefill (llama3.2-1b, 4 prompts padded to 512) and one 4k-token
@@ -244,6 +269,8 @@ def check_kernels() -> dict:
         ("", "bfloat16", 2, 300, 8, 1, 32, True, 0),
         ("", "bfloat16", 1, 65, 4, 4, 32, True, 16),
         ("", "bfloat16", 1, 257, 8, 8, 128, True, 0),
+        # deepseek-7b's prefill in [serverless]: MHA (G 1), hd 128, B 1
+        ("deepseek-7b", "bfloat16", 1, SERVERLESS_PROMPT, 32, 32, 128, True, 0),
     ]
     for label, dt, B, S, H, K, hd, causal, window in flash_cases:
         dtype = getattr(torch, dt)
@@ -268,12 +295,17 @@ def check_kernels() -> dict:
             4 * B * H * hd * (S * (S + 1) // 2),  # causal: visible pairs only
             err)
         del ref
-        if label == "main":
-            rows["flash_attention"] = {
+        if label in ("main", "deepseek-7b"):
+            rows[("flash_attention", label)] = {
                 "name": "flash_attention", "route": "cuda",
                 "source": "src/repro_torch/csrc/flash_attention.cu",
-                "replaces": "src/repro/kernels/flash_attention.py:102", **row}
+                "replaces": "src/repro/kernels/flash_attention.py:102",
+                "shape": SHAPE_NOTES[label], **row}
     return rows
+
+
+SHAPE_NOTES = {"main": "llama3.2-1b, main path (launches: main path)",
+               "deepseek-7b": "deepseek-7b, [serverless] (launches: its requests there)"}
 
 
 def _bound(nbytes: int, flops: int, dtype: str) -> tuple[float, str]:
@@ -492,6 +524,372 @@ def profile_decode(eng, cfg, batch, steps: int = 8):
         f"{n_kernels / steps:.0f} kernels/step, K1 (split + combine) {k1_ms:.3f} ms/step; top: "
         + "; ".join(f"{n[:60]} {t:.3f} ms" for n, t in top))
 
+# ------------------------------------------------------------------ phase 4
+SERVERLESS_MODELS = ("llama3.2-1b", "deepseek-7b")
+# the launcher's default trace (seed 0, 20 s mean gap) at 10 requests: with a
+# fixed 10 s keep-alive, no arrival finds the other model warm (the pool
+# cannot hold both retained) and the run has warm starts, full h2d cold
+# starts and partial-reuse cold starts
+SERVERLESS_TRACE = dict(n_requests=10, seed=0, mean_interarrival=20.0)
+SERVERLESS_KEEP_ALIVE = "fixed:10"
+SERVERLESS_PROMPT, SERVERLESS_GEN = 256, 16
+FLEET_TRACE = dict(n_requests=10, seed=3, mean_interarrival=20.0)
+FLEET_CHAOS_SEED = 1  # the seeded pick crashes engine0
+FLEET_HOST_CACHE = 1 << 30  # per engine: released tensors spill past 1 GiB
+CHUNK_BYTES = 16 << 20  # the engines' h2d chunk (Engine's default)
+
+
+def tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map(fn, v) for v in tree)
+    return fn(tree)
+
+
+def draw_weights(cfg, seed: int, device="cuda"):
+    """A model's random weights, drawn once from a seeded generator on
+    `device` and kept in host memory (page-locked on CUDA, so every engine's
+    host tier holds these very buffers and its h2d runs asynchronously)."""
+    import torch
+
+    from repro_torch.models import build_model
+
+    dev = torch.device(device)
+    tree = build_model(cfg).init(torch.Generator(device=dev).manual_seed(seed), device=dev)
+    if dev.type == "cpu":
+        return tree
+    host = tree_map(lambda t: torch.empty(t.shape, dtype=t.dtype, pin_memory=True).copy_(t),
+                    tree)
+    del tree
+    torch.cuda.empty_cache()
+    return host
+
+
+def host_memory() -> str:
+    """This process's resident host memory and the machine's available
+    memory (Linux), for the phase lines."""
+    try:
+        rss = next(line.split()[1] for line in open("/proc/self/status")
+                   if line.startswith("VmRSS"))
+        avail = next(line.split()[1] for line in open("/proc/meminfo")
+                     if line.startswith("MemAvailable"))
+        return f"host RSS {int(rss) / 2**20:.1f} GiB, available {int(avail) / 2**20:.1f} GiB"
+    except (OSError, StopIteration):
+        return "host memory not measured"
+
+
+def allocated(dev) -> int:
+    import torch
+
+    if dev.type != "cuda":
+        return 0
+    torch.cuda.synchronize()
+    return torch.cuda.memory_allocated(dev)
+
+
+def device_bytes(eng) -> int:
+    """Bytes of every device tensor the engine holds: its pool's buffers, KV
+    slabs, fused tables and live instances' tables."""
+    import torch
+
+    tensors = list(eng._tensors.values())
+    for slab in eng._slabs.values():
+        tensors += [slab.k_pages, slab.v_pages]
+    for cached in eng._fused.values():
+        tensors += [t for t in cached if isinstance(t, torch.Tensor)]
+    for insts in eng._live_instances.values():
+        for inst in insts:
+            tensors += [t for t in (inst._tables, inst._lengths) if t is not None]
+    storages = {t.untyped_storage().data_ptr(): t.untyped_storage().nbytes()
+                for t in tensors if t.device.type == "cuda"}
+    return sum(storages.values())
+
+
+def recording_engine():
+    """`Engine` that ledgers every load and keeps, for the first instance of
+    each model, the prompt batch, the fed token and clones of the first
+    prefill and decode logits (device copies: no host read).  The hooks hold
+    their instance weakly, so a finished instance is freed at once."""
+    import weakref
+
+    from repro_torch.serving.engine import Engine
+
+    class RecordingEngine(Engine):
+        def __init__(self, *args, **kw):
+            super().__init__(*args, **kw)
+            self.loads, self.first = [], {}
+
+        def load(self, model_id, **kw):
+            rep = super().load(model_id, **kw)
+            self.loads.append((model_id, rep, self.last_load))
+            return rep
+
+        def start_instance(self, model_id, **kw):
+            inst = super().start_instance(model_id, **kw)
+            if model_id in self.first:
+                return inst
+            rec = self.first[model_id] = {}
+            ref = weakref.ref(inst)
+
+            def first_prefill(batch, **k):
+                out = type(ref()).prefill(ref(), batch, **k)
+                rec.update(batch=batch, prefill=out.detach().clone())
+                return out
+
+            def first_decode(tok):
+                out = type(ref()).decode(ref(), tok)
+                if "decode" not in rec:
+                    rec.update(token=tok.clone(), decode=out.detach().clone())
+                return out
+
+            inst.prefill, inst.decode = first_prefill, first_decode
+            return inst
+
+    return RecordingEngine
+
+
+def hold_first_tokens(eng, names):
+    """The first request of each model through the plain attention (flash
+    and paged) on the same engine, weights, prompt and fed token: its first
+    prefill and decode logits within the bf16 tolerance relative to scale."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import flash_attention_ref
+
+    worst = {}
+    for m in names:
+        rec = eng.first[m]
+        eng.free_evicted()
+        eng.load(m)
+        eng.free_evicted()
+        inst = eng.start_instance(m, attn_mode="ref")
+        kernel = ops.flash_attention
+        ops.flash_attention = flash_attention_ref  # the plain prefill path
+        try:
+            plain = {"prefill": inst.prefill(rec["batch"])}
+        finally:
+            ops.flash_attention = kernel
+        plain["decode"] = inst.decode(rec["token"])
+        inst.finish()
+        eng.release(m)
+        for step, want in plain.items():
+            got, want = rec[step].float(), want.float()
+            err = float((got - want).abs().max())
+            scale = max(1.0, float(want.abs().max()))
+            worst[(m, step)] = err / scale
+            assert err <= TOL["bfloat16"] * scale, f"{m} {step}: logits differ by {err}"
+    log("[serverless] first request of each model vs the plain attention path: "
+        + ", ".join(f"{m} {step} {e:.3e}" for (m, step), e in worst.items())
+        + f" (max |diff| / scale, tol {TOL['bfloat16']:g})")
+
+
+def _load_line(i, rec, load, size) -> str:
+    m, rep, st = load
+    return (f"req {i}: {m:12s} {'cold' if rec.cold else 'warm'} "
+            f"reuse {rep.reuse_fraction:.4f}; bytes device-hit {st.bytes_device_hit} "
+            f"h2d {st.bytes_h2d} (host {st.bytes_host_hit}, store {st.bytes_store}, "
+            f"prefetched {st.bytes_prefetched}, materialized leaves "
+            f"{st.leaves_materialized}) of {size}; init {rec.init_s * 1e3:.3f} ms, "
+            f"load {rec.load_s * 1e3:.3f} ms (h2d {st.transfer_seconds * 1e3:.3f} ms), "
+            f"profile {rec.profile_s * 1e3:.3f} ms, prefill {rec.prefill_s * 1e3:.3f} ms, "
+            f"decode {rec.decode_s / max(SERVERLESS_GEN, 1) * 1e3:.3f} ms/token, "
+            f"TTFT {rec.ttft * 1e3:.3f} ms")
+
+
+def check_loads(loads, sizes):
+    """Every load moves exactly the bytes its report transfers, and the
+    device hits plus the h2d bytes are the whole model."""
+    for m, rep, st in loads:
+        assert st.bytes_device_hit + st.bytes_h2d == sizes[m], (m, st.as_dict())
+        assert st.bytes_h2d == rep.bytes_transferred, (m, st.bytes_h2d, rep.bytes_transferred)
+
+
+def model_sizes(cfgs: dict) -> dict:
+    from repro_torch.models.tensors import spec_records
+
+    return {m: sum(r.nbytes for r in spec_records(m, cfg)) for m, cfg in cfgs.items()}
+
+
+def serverless_phase(cfgs: dict, weights: dict, device="cuda") -> dict:
+    """The single-engine `Gateway` over `cfgs`; returns the launch counts of
+    each model's requests."""
+    import torch
+
+    from repro_torch.core.trace import SimModel
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import _print_ttft_breakdown
+    from repro_torch.serverless import Gateway, poisson_trace
+
+    dev = torch.device(device)
+    names = list(cfgs)
+    sizes = model_sizes(cfgs)
+    pool = max(sizes.values()) + min(sizes.values()) // 2  # never both models
+    eng = recording_engine()(pool, device=dev, engine_id="serverless")
+    for m in names:
+        eng.register(m, cfgs[m], init_fn=lambda w=weights[m]: w)
+    gc.collect()  # what earlier phases left in reference cycles
+    base = allocated(dev)
+    trace = poisson_trace(models=[SimModel(m, 1e6, 1) for m in names], **SERVERLESS_TRACE)
+    gw = Gateway(eng, keep_alive=SERVERLESS_KEEP_ALIVE, prompt_len=SERVERLESS_PROMPT,
+                 gen_tokens=SERVERLESS_GEN)
+    log(f"[serverless] pool {pool} B; models {sizes}; trace {SERVERLESS_TRACE}, keep-alive "
+        f"{SERVERLESS_KEEP_ALIVE}, prompt {SERVERLESS_PROMPT}, {SERVERLESS_GEN} tokens")
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    sink = gw.run_trace(trace)
+    replay_s = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    recs = sink.records
+    assert len(recs) == len(eng.loads) == len(trace)
+    for i, (rec, load) in enumerate(zip(recs, eng.loads)):
+        log("[serverless] " + _load_line(i, rec, load, sizes[load[0]]))
+    check_loads(eng.loads, sizes)
+    kinds = {"warm": [i for i, r in enumerate(recs) if not r.cold],
+             "full h2d cold": [i for i, (r, (m, _, st)) in enumerate(zip(recs, eng.loads))
+                               if r.cold and st.bytes_h2d == sizes[m]],
+             "partial-reuse cold": [i for i, (r, (_, rep, _)) in enumerate(zip(recs, eng.loads))
+                                    if r.cold and 0 < rep.reuse_fraction < 1]}
+    log(f"[serverless] starts: {kinds}; replay {replay_s:.3f} s")
+    assert all(kinds.values()), kinds
+    per_model = {m: {"paged_attention": cfgs[m].num_layers * SERVERLESS_GEN * n,
+                     "flash_attention": cfgs[m].num_layers * n}
+                 for m in names for n in [sum(r.model_id == m for r in recs)]}
+    log(f"[serverless] launches {json.dumps(counts)}; by model {json.dumps(per_model)}")
+    if dev.type == "cuda":
+        for k in counts:
+            assert counts[k] == sum(c[k] for c in per_model.values()), (counts, per_model)
+    log(f"[serverless] summary {json.dumps(sink.summary())}")
+    _print_ttft_breakdown(recs)
+    hold_first_tokens(eng, names)
+    eng.crash()
+    after = allocated(dev)
+    log(f"[serverless] crash: device memory {after} B allocated, {base} B before the first "
+        f"load (one chunk = {CHUNK_BYTES} B)")
+    assert after - base <= CHUNK_BYTES, (base, after)
+    eng.close()
+    return per_model
+
+
+# ------------------------------------------------------------------ phase 5
+def fleet_phase(cfgs: dict, weights: dict, device="cuda") -> dict:
+    """`FleetGateway` over two engines under the seeded chaos schedule, then
+    a `Gateway` replay on the recovered engine."""
+    import torch
+
+    from repro_torch.core.faults import FaultInjector
+    from repro_torch.core.trace import Request, SimModel
+    from repro_torch.serverless import FleetGateway, Gateway, chaos_schedule, poisson_trace
+
+    dev = torch.device(device)
+    names = list(cfgs)
+    sizes = model_sizes(cfgs)
+    pool = max(sizes.values()) + min(sizes.values()) // 2
+    trace = poisson_trace(models=[SimModel(m, 1e6, 1) for m in names], **FLEET_TRACE)
+    # the crash lands after the fourth arrival; the engine rejoins before
+    # the seventh
+    crash_t = trace[3].time + 1.0
+    specs, events = chaos_schedule(seed=FLEET_CHAOS_SEED, n_engines=2, crash_time=crash_t,
+                                   recover_after=trace[6].time - 1.0 - crash_t)
+    Engine = recording_engine()
+    engines = []
+    for i in range(2):
+        eng = Engine(pool, device=dev, engine_id=f"engine{i}",
+                     host_cache_bytes=FLEET_HOST_CACHE,
+                     faults=FaultInjector(specs=tuple(specs[i]), seed=FLEET_CHAOS_SEED))
+        for m in names:
+            eng.register(m, cfgs[m], init_fn=lambda w=weights[m]: w)
+        engines.append(eng)
+    checks = []
+
+    class Fleet(FleetGateway):
+        def _apply_fault(self, now, kind, engine_id):
+            eng = next(n.engine for n in self.nodes if n.device_id == engine_id)
+            before, held = allocated(dev), device_bytes(eng)
+            super()._apply_fault(now, kind, engine_id)
+            if kind == "crash":
+                checks.append((engine_id, before, held, allocated(dev)))
+
+    gc.collect()
+    base = allocated(dev)
+    fg = Fleet(engines, keep_alive=SERVERLESS_KEEP_ALIVE, prompt_len=SERVERLESS_PROMPT,
+               gen_tokens=SERVERLESS_GEN)
+    log(f"[fleet] 2 engines, pool {pool} B each, host tier {FLEET_HOST_CACHE} B each; models "
+        f"{sizes}; trace {FLEET_TRACE}; chaos seed {FLEET_CHAOS_SEED}: "
+        + "; ".join(f"{e.engine_id} crash at {e.time:.3f} s, back after "
+                    f"{e.recover_after:.3f} s" for e in events))
+    t0 = time.perf_counter()
+    sink = fg.run_trace(trace, faults=events)
+    replay_s = time.perf_counter() - t0
+    for d, rec in zip(fg.decisions, sink.records):
+        log(f"[fleet] t {d[0]:.3f} {d[1]:12s} -> {d[2]} {'cold' if d[3] else 'warm'} queue "
+            f"{d[4]:.6f} s; load {rec.load_s * 1e3:.3f} ms, prefill {rec.prefill_s * 1e3:.3f} "
+            f"ms, store bytes {rec.bytes_from_store}, prefetched {rec.prefetched}")
+    for eng in engines:
+        check_loads(eng.loads, sizes)
+        log(f"[fleet] {eng.engine_id} fault ledger {json.dumps(eng.fault_summary())}")
+    summary = fg.summary()
+    log(f"[fleet] dropped {summary['dropped_requests']}, redriven "
+        f"{summary['requests_redriven']}, interrupted {summary['requests_interrupted']}, "
+        f"crashes {summary['engine_crashes']}, recoveries {summary['engine_recoveries']}; "
+        f"replay {replay_s:.3f} s")
+    assert summary["dropped_requests"] == 0
+    assert summary["engine_crashes"] == 1 == summary["engine_recoveries"]
+    assert sum(e.fault_summary()["h2d_stalls"] for e in engines) >= 1
+    (crashed, before, held, after), = checks
+    log(f"[fleet] crash of {crashed}: device memory {before} -> {after} B allocated, "
+        f"the engine held {held} B (one chunk = {CHUNK_BYTES} B)")
+    assert abs(before - held - after) <= CHUNK_BYTES, (before, held, after)
+    log("[fleet] placement hints / joined loads per engine: "
+        + ", ".join(f"{e.engine_id} {e.prefetcher.hints} / {e.prefetcher.joins}"
+                    for e in engines))
+
+    # the recovered engine serves again: the Gateway's next-model hint has
+    # the current request's service as its window, so the prefetch worker
+    # promotes spilled tensors before the hinted load joins
+    eng = next(e for e in engines if e.engine_id == crashed)
+    n0 = len(eng.loads)
+    big = max(names, key=sizes.get)
+    small = min(names, key=sizes.get)
+    t_end = max(trace[-1].time, max(d[0] for d in fg.decisions)) + 100.0
+    replay = [Request(t_end + 100.0 * i, m, "gsm8k", SERVERLESS_PROMPT, SERVERLESS_GEN, 1)
+              for i, m in enumerate([big, small, big, small])]
+    gw = Gateway(eng, keep_alive="zero", prompt_len=SERVERLESS_PROMPT,
+                 gen_tokens=SERVERLESS_GEN)
+    gw_sink = gw.run_trace(replay)
+    for i, (rec, load) in enumerate(zip(gw_sink.records, eng.loads[n0:])):
+        log(f"[fleet] {crashed} (recovered) " + _load_line(i, rec, load, sizes[load[0]]))
+    check_loads(eng.loads, sizes)
+    loads = [ld for e in engines for ld in e.loads]
+    store = [ld for ld in loads if ld[2].bytes_store > 0]
+    prefetched = [ld for ld in loads if ld[2].bytes_prefetched > 0]
+    log(f"[fleet] loads with store-tier bytes: {len(store)}, with prefetched bytes: "
+        f"{len(prefetched)}; {crashed} fault ledger {json.dumps(eng.fault_summary())}; "
+        f"{host_memory()}")
+    assert store and prefetched
+    for e in engines:
+        e.close()
+    del engines, fg, gw, eng, e
+    gc.collect()
+    log(f"[fleet] device memory after closing the fleet: {allocated(dev)} B ({base} B before)")
+    return summary
+
+
+# ------------------------------------------------------------------ phase 6
+def launcher_phase(device="cuda"):
+    """The serving launcher as users run it, in a subprocess, at its own
+    smoke sizes."""
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--trace", "poisson",
+           "--n-engines", "2", "--chaos", "--device", device]
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    out = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
+    for line in out.stdout.splitlines():
+        log(f"[launcher] {line}")
+    if out.returncode != 0:
+        raise RuntimeError(f"launcher exited {out.returncode}:\n{out.stderr[-3000:]}")
+    assert "serverless summary:" in out.stdout and "chaos fleet:" in out.stdout
+    log(f"[launcher] exit 0 in {time.perf_counter() - t0:.3f} s")
+
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -507,14 +905,37 @@ def main(argv=None) -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     smi = setup()
+    t0 = time.perf_counter()
     rows = check_kernels()
+    log(f"[phase] kernels {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
     counts = main_path()
-    for name, row in rows.items():
-        row["launches"] = counts[name]
-    kernels = [{k: rows[n][k] for k in ("name", "route", "source", "replaces", "launches",
-                                        "max_abs_err", "ms", "plain_ms", "bound_ms",
-                                        "bound_by", "library_ms")}
-               for n in ("paged_attention", "flash_attention")]
+    log(f"[phase] main path {time.perf_counter() - t0:.1f} s")
+    from repro_torch.configs import get_config
+
+    t0 = time.perf_counter()
+    cfgs = {m: get_config(m) for m in SERVERLESS_MODELS}
+    weights = {m: draw_weights(cfg, seed) for seed, (m, cfg) in enumerate(cfgs.items())}
+    log(f"[phase] weights drawn {time.perf_counter() - t0:.1f} s; {host_memory()}")
+    t0 = time.perf_counter()
+    per_model = serverless_phase(cfgs, weights)
+    log(f"[phase] serverless {time.perf_counter() - t0:.1f} s; {host_memory()}")
+    t0 = time.perf_counter()
+    fleet_phase(cfgs, weights)
+    log(f"[phase] fleet {time.perf_counter() - t0:.1f} s; {host_memory()}")
+    del weights
+    gc.collect()
+    t0 = time.perf_counter()
+    launcher_phase()
+    log(f"[phase] launcher {time.perf_counter() - t0:.1f} s")
+    for (name, label), row in rows.items():
+        row["launches"] = counts[name] if label == "main" else per_model["deepseek-7b"][name]
+    kernels = [{k: rows[key][k] for k in ("name", "route", "source", "replaces", "shape",
+                                          "launches", "max_abs_err", "ms", "plain_ms",
+                                          "bound_ms", "bound_by", "library_ms")}
+               for key in (("paged_attention", "main"), ("flash_attention", "main"),
+                           ("paged_attention", "deepseek-7b"),
+                           ("flash_attention", "deepseek-7b"))]
     log(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -24,10 +24,18 @@ Where the reference donates buffers to a jitted scatter, the port updates
 the shared slab in place.  `SharedKVSlab.grow` reallocates, so every holder
 re-reads `slab.k_pages` / `slab.v_pages` at each use.
 
+The control plane's engine surface is ported too: `crash`, `fault_summary`,
+`prewarm`, `host_resident_bytes`, `host_free_bytes` and `set_host_capacity`
+(the `serverless` gateways and `core.engine_api` call them), and one
+method of its own, `free_evicted`, which the gateways call around every
+request so that what the pool evicts leaves the card.  On CUDA, `crash`
+drains the copy stream, joins the prefetch worker and drops every device
+reference (live instances' included) before it swaps the state, so the
+card's memory comes back.
+
 Entry points run on the CUDA device unless the caller passes
 ``device="cpu"``; with ``device="cuda"`` and no card the engine raises.
-Not ported yet: `crash`, `recover`, `migrate_out` / `migrate_in`,
-`register_variant`, `set_host_capacity` and the fleet-protocol accessors.
+Not ported yet: `migrate_out` / `migrate_in` and `register_variant`.
 """
 from __future__ import annotations
 
@@ -58,7 +66,7 @@ from repro_torch.models.tensors import (HostTensorStore, ModelSpec, PersistentSt
                                         StoreError, TensorRecord, tensor_records,
                                         tree_structure, tree_unflatten)
 from repro_torch.obs import NULL_TRACER, BoundedLog
-from repro_torch.stats import snapshot_dict
+from repro_torch.stats import EngineFaultStats, snapshot_dict
 
 log = logging.getLogger(__name__)
 
@@ -206,6 +214,12 @@ class ChunkedTransfer:
         if self._stream is None:
             self._stream = torch.cuda.Stream(device=self.device)
         return self._stream
+
+    def drain(self):
+        """Wait for every chunk queued on the copy stream (no-op on the CPU
+        and before the first transfer)."""
+        if self._stream is not None:
+            self._stream.synchronize()
 
     def _put(self, dst: torch.Tensor, host_slice: torch.Tensor,
              stats: Optional[DataLoadStats]):
@@ -699,6 +713,7 @@ class Engine:
                     point, args={"idx": idx, "key": key, "mode": mode,
                                  "engine": engine_id}))
         self.fault_stats = FaultStats()
+        self.crashes = 0  # Engine.crash() invocations (fleet chaos events)
         if transfer_timeout_s is None and faults is not None:
             transfer_timeout_s = 30.0
         self.transfer_timeout_s = transfer_timeout_s
@@ -1035,6 +1050,85 @@ class Engine:
         close them."""
         self.prefetcher.close()
 
+    # ----------------------------------------------------------- chaos plane
+    def crash(self):
+        """Simulated engine/process crash (DESIGN.md §15): volatile state is
+        LOST — device pool, host tier, live buffers, param caches, KV slabs,
+        pins — while the persistent store (the durable tier) survives.  The
+        engine rejoins with cold tiers at the CURRENT host-capacity budget;
+        host-only tensors that never spilled become unresolvable and
+        re-materialize via `init_fn` on the next load.  The host tier's
+        fault counters are folded into `fault_stats` first so the chaos
+        ledger survives the object swap.
+
+        On the card the state swap must free the memory: the prefetch worker
+        is joined and the copy stream drained first (no chunk is in flight),
+        and every live instance drops its slab, tables and lengths, so no
+        reference outlives the crash even where a caller still holds the
+        instance."""
+        self.crashes += 1
+        if self.tracer.enabled:
+            self.tracer.record_fault("engine.crash",
+                                     args={"engine": self.engine_id})
+        self.fault_stats.store_retries += self.host_store.read_retries
+        self.fault_stats.store_quarantines += self.host_store.quarantines
+        # in-flight hints own host-tier pins that nothing releases once their
+        # prefetcher dies: drop and count them
+        with self._store_lock:
+            orphaned = [mid for mid, job in self.prefetcher._jobs.items()
+                        if job.owns_pin and mid in self._host_pins
+                        and mid not in self.store.active_models]
+            for mid in orphaned:
+                self._unpin_model(mid)
+            self.fault_stats.prefetch_pins_dropped += len(orphaned)
+        self.prefetcher.close()
+        self._xfer.drain()
+        for insts in self._live_instances.values():
+            for inst in insts:
+                inst._drop_device_state()
+        self.store = ReuseStore(self.store.pool.capacity, self.store.costs)
+        self.host_store = HostTensorStore(
+            self.host_store.capacity_bytes, spill=self.persistent_store,
+            keep_alive_s=self.host_store.keep_alive_s,
+            pin_memory=self.host_store.pin_memory)
+        self._host_pins = set()
+        self._tensors = {}
+        self._params_cache = {}
+        self._slabs = {}
+        self._fused = {}
+        self._instances_of = {}
+        self._live_instances = {}
+        self.last_load = None
+        self.prefetcher = Prefetcher(self)
+        log.warning("engine %s crashed: tiers cold, persistent store intact",
+                    self.engine_id)
+
+    def fault_summary(self) -> dict[str, Any]:
+        """The engine's chaos ledger: injected faults (per point) plus every
+        handled/quarantined/failed-over outcome (the reference's schema)."""
+        fs, ps, hs = (self.fault_stats, self.persistent_store,
+                      self.host_store)
+        return EngineFaultStats(
+            injected=(self.faults.ledger() if self.faults is not None
+                      else {}),
+            store_read_errors=ps.read_errors,
+            store_checksum_failures=ps.checksum_failures,
+            store_quarantined=ps.quarantined,
+            store_retries=fs.store_retries + hs.read_retries,
+            store_quarantines=fs.store_quarantines + hs.quarantines,
+            h2d_retries=fs.h2d_retries,
+            h2d_stalls=fs.h2d_stalls,
+            transfer_timeouts=fs.transfer_timeouts,
+            prefetch_errors=fs.prefetch_errors,
+            worker_restarts=fs.worker_restarts,
+            join_failovers=fs.join_failovers,
+            load_errors=fs.load_errors,
+            shutdown_join_timeouts=fs.shutdown_join_timeouts,
+            prefetch_pins_dropped=fs.prefetch_pins_dropped,
+            tensors_reinit=fs.tensors_reinit,
+            crashes=self.crashes,
+        ).as_dict()
+
     def cancel_prefetch(self, model_id: str):
         """Withdraw an abandoned hint: stop the in-flight promotion and drop
         the hint's pin (no-op after a load already joined the job).  If a
@@ -1078,6 +1172,36 @@ class Engine:
         self.store.activate(model_id)
         self._pin_model(model_id)
 
+    def prewarm(self, model_id: str, *, now: float = 0.0) -> LoadReport:
+        """Predictive pre-warm (DESIGN.md §14): load the model AHEAD of its
+        predicted arrival and retain it, so the re-arrival finds a warm
+        instance."""
+        rep = self.load(model_id, now=now)
+        self.retain(model_id)
+        return rep
+
+    def host_resident_bytes(self, records: Sequence[TensorRecord]) -> int:
+        """Tier-aware affinity scoring feed (DeviceView protocol): bytes of
+        `records` the DEVICE pool misses that the host Model Store holds."""
+        with self._store_lock:
+            return sum(r.nbytes for r in records
+                       if r.fingerprint not in self._tensors
+                       and r.fingerprint in self.host_store)
+
+    def host_free_bytes(self) -> Optional[int]:
+        """Free bytes in the host Model Store budget (None = unbounded)."""
+        with self._store_lock:
+            if self.host_store.capacity_bytes is None:
+                return None
+            return max(0, self.host_store.capacity_bytes
+                       - self.host_store.nbytes())
+
+    def set_host_capacity(self, capacity_bytes: Optional[int]) -> int:
+        """Tenant-pressure feed: resize the host Model Store budget under
+        the store lock.  Pinned models are exempt.  Returns bytes spilled."""
+        with self._store_lock:
+            return self.host_store.set_capacity_bytes(capacity_bytes)
+
     def finish_instance(self, model_id: str):
         """Instance-path release, refcounted: the model stays ACTIVE in the
         store (never evictable) until its LAST live instance finishes —
@@ -1109,6 +1233,26 @@ class Engine:
             del self._tensors[fp]
         for mid in list(self._params_cache):
             if any(r.fingerprint not in live for r in self.models[mid].records):
+                del self._params_cache[mid]
+
+    def free_evicted(self):
+        """Drop the device buffers of tensors the pool evicted, except those
+        of models in use.  The reference keeps every evicted buffer until a
+        caller runs `sync_evictions`, and its gateways never do, so device
+        memory grows past the pool; the port's control plane calls this
+        before and after every load and after every request.  A model in
+        use keeps all of its buffers: `ReuseStore.load_model` activates the
+        model only after allocating its misses, so the allocation may evict
+        the model's own resident hits, which its instances still read (the
+        pool frees them once the model is released)."""
+        live = set(self.store.tensor_map)
+        active = self.store.active_models
+        keep = {r.fingerprint for m in active for r in self.models[m].records}
+        for fp in [fp for fp in self._tensors if fp not in live and fp not in keep]:
+            del self._tensors[fp]
+        for mid in list(self._params_cache):
+            if mid not in active and any(r.fingerprint not in live
+                                         for r in self.models[mid].records):
                 del self._params_cache[mid]
 
     def params_of(self, model_id: str):
@@ -1445,6 +1589,13 @@ class Instance:
             self.slab.k_pages, self.slab.v_pages, attn=self.attn_mode)
         self._host_lens += 1
         return logits
+
+    def _drop_device_state(self):
+        """Engine crash: forget every device tensor this instance holds (the
+        instance is dead; the engine's state is being swapped out)."""
+        self.slab = None
+        self._cache = None
+        self._tables = self._lengths = None
 
     def finish(self):
         if self.slab is not None:

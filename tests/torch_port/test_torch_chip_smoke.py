@@ -59,3 +59,44 @@ def test_main_path_rehearses_on_cpu(monkeypatch):
                               num_layers=2, d_model=128, d_ff=256, vocab_size=512)
     counts = cs.main_path(cfg, "cpu")
     assert counts == {"paged_attention": 0, "flash_attention": 0}  # CPU: plain versions
+
+
+TINY = dict(num_layers=2, d_model=128, d_ff=256, vocab_size=512, num_heads=4,
+            num_kv_heads=2, head_dim=32)
+TINY_DEEPSEEK = dict(num_layers=4, d_model=256, d_ff=512, vocab_size=1024, num_heads=8,
+                     num_kv_heads=8, head_dim=32)
+
+
+def tiny_models(cs):
+    """llama3.2-1b and deepseek-7b shrunk so the deepseek stand-in is ~9x
+    the llama one, as at full width (5.6x); weights drawn as on the card."""
+    from repro_torch.configs import get_config
+
+    cfgs = {"llama3.2-1b": dataclasses.replace(get_config("llama3.2-1b"), **TINY),
+            "deepseek-7b": dataclasses.replace(get_config("deepseek-7b"), **TINY_DEEPSEEK)}
+    return cfgs, {m: cs.draw_weights(c, i, "cpu") for i, (m, c) in enumerate(cfgs.items())}
+
+
+def test_serverless_phase_rehearses_on_cpu(monkeypatch):
+    """The [serverless] phase's trace, pool rule and checks on the CPU: warm,
+    full h2d and partial-reuse cold starts, every load's bytes, the first
+    requests against the plain attention, the crash's memory check."""
+    cs = load_chip_smoke()
+    monkeypatch.setattr(cs, "SERVERLESS_PROMPT", 40)
+    monkeypatch.setattr(cs, "SERVERLESS_GEN", 4)
+    cfgs, weights = tiny_models(cs)
+    per_model = cs.serverless_phase(cfgs, weights, "cpu")
+    assert per_model["deepseek-7b"]["flash_attention"] % 4 == 0
+
+
+def test_fleet_phase_rehearses_on_cpu(monkeypatch):
+    """The [fleet] phase on the CPU: the chaos trace over two engines, the
+    crash and recovery, store-tier and prefetched loads on bounded host
+    tiers, then the recovered engine's Gateway replay."""
+    cs = load_chip_smoke()
+    monkeypatch.setattr(cs, "SERVERLESS_PROMPT", 40)
+    monkeypatch.setattr(cs, "SERVERLESS_GEN", 4)
+    monkeypatch.setattr(cs, "FLEET_HOST_CACHE", 64 << 10)
+    cfgs, weights = tiny_models(cs)
+    summary = cs.fleet_phase(cfgs, weights, "cpu")
+    assert summary["engine_crashes"] == 1 and summary["dropped_requests"] == 0

@@ -17,6 +17,10 @@ from repro_torch.configs.base import ShapeConfig  # noqa: E402
 from repro_torch.models import build_model, encdec, lm  # noqa: E402
 from repro_torch.models.convert import params_from_numpy  # noqa: E402
 from repro_torch.models.tensors import flatten_params  # noqa: E402
+from repro_torch.core.trace import SimModel  # noqa: E402
+from repro_torch.launch import serve  # noqa: E402
+from repro_torch.serverless import FleetGateway, Gateway, poisson_trace  # noqa: E402
+from repro_torch.serverless.gateway import make_prefill_batch  # noqa: E402
 from repro_torch.serving.engine import ChunkedTransfer, DataLoadStats, Engine  # noqa: E402
 
 CFG = dataclasses.replace(get_config("llama3.2-1b").smoke(), dtype="float32")
@@ -42,7 +46,29 @@ ENTRY_POINTS = {
     "ChunkedTransfer": lambda **kw: ChunkedTransfer(chunk_bytes=64, **kw).transfer(
         [("x", torch.ones((8, 4)))], DataLoadStats()),
     "Engine": lambda **kw: Engine(1 << 20, **kw).device,
+    "make_prefill_batch": lambda **kw: make_prefill_batch(_engine(**kw), "m", 8, 0),
+    "Gateway": lambda **kw: _served(Gateway, [_engine(**kw)]),
+    "FleetGateway": lambda **kw: _served(FleetGateway, [_engine("e0", **kw),
+                                                        _engine("e1", **kw)]),
+    "launch.serve": lambda **kw: [e.device for e in serve.main(
+        ["--models", "llama3.2-1b", "--requests", "1", "--prompt-len", "8",
+         "--gen-tokens", "1"] + (["--device", kw["device"]] if kw else []))],
 }
+
+
+def _engine(engine_id="engine0", **kw):
+    eng = Engine(64 << 20, engine_id=engine_id, **kw)
+    eng.register("m", CFG)
+    return eng
+
+
+def _served(gateway, engines):
+    """Replay one request through the gateway; the loaded weights."""
+    gw = gateway(engines[0] if gateway is Gateway else engines,
+                 prompt_len=8, gen_tokens=1)
+    gw.run_trace(poisson_trace(n_requests=1, models=[SimModel("m", 1e6, 1)]))
+    return [t for e in engines if "m" in e._params_cache for t in
+            [e.params_of("m")["embed"]]]
 
 
 def _device_types(out) -> set[str]:

@@ -39,7 +39,9 @@ def test_port_imports_with_jax_blocked():
         "    sys.modules[name] = None\n"
         "import repro_torch, repro_torch.configs, repro_torch.core, repro_torch.obs\n"
         "import repro_torch.models.convert, repro_torch.kernels.ops\n"
-        "import repro_torch.serving.engine\n"
+        "import repro_torch.serving.engine, repro_torch.serverless\n"
+        "import repro_torch.serverless.gateway, repro_torch.serverless.fleet\n"
+        "import repro_torch.core.cluster, repro_torch.launch.serve\n"
         "print('ok')\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,
