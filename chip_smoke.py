@@ -607,25 +607,39 @@ def device_bytes(eng) -> int:
 
 
 def recording_engine():
-    """`Engine` that ledgers every load and keeps, for the first instance of
-    each model, the prompt batch, the fed token and clones of the first
-    prefill and decode logits (device copies: no host read).  The hooks hold
-    their instance weakly, so a finished instance is freed at once."""
+    """`Engine` that ledgers every load, counts each model's kernel launches
+    (the launch counters read when an instance starts and when it finishes),
+    and keeps, for the first instance of each model, the prompt batch, the
+    fed token and clones of the first prefill and decode logits (device
+    copies: no host read).  The hooks hold their instance weakly, so a
+    finished instance is freed at once."""
     import weakref
 
+    from repro_torch.kernels import ops
     from repro_torch.serving.engine import Engine
 
     class RecordingEngine(Engine):
         def __init__(self, *args, **kw):
             super().__init__(*args, **kw)
             self.loads, self.first = [], {}
+            self.launches, self._launches_at = {}, {}
 
         def load(self, model_id, **kw):
             rep = super().load(model_id, **kw)
             self.loads.append((model_id, rep, self.last_load))
             return rep
 
+        def finish_instance(self, model_id):
+            super().finish_instance(model_id)
+            at = self._launches_at.pop(model_id, None)
+            if at is None:  # an instance the crash already dropped
+                return
+            mine = self.launches.setdefault(model_id, dict.fromkeys(at, 0))
+            for k, n in ops.launch_counts().items():
+                mine[k] += n - at[k]
+
         def start_instance(self, model_id, **kw):
+            self._launches_at[model_id] = ops.launch_counts()
             inst = super().start_instance(model_id, **kw)
             if model_id in self.first:
                 return inst
@@ -659,9 +673,7 @@ def hold_first_tokens(eng, names):
     worst = {}
     for m in names:
         rec = eng.first[m]
-        eng.free_evicted()
         eng.load(m)
-        eng.free_evicted()
         inst = eng.start_instance(m, attn_mode="ref")
         kernel = ops.flash_attention
         ops.flash_attention = flash_attention_ref  # the plain prefill path
@@ -712,7 +724,7 @@ def model_sizes(cfgs: dict) -> dict:
 
 def serverless_phase(cfgs: dict, weights: dict, device="cuda") -> dict:
     """The single-engine `Gateway` over `cfgs`; returns the launch counts of
-    each model's requests."""
+    each model's requests, as the counters measured them."""
     import torch
 
     from repro_torch.core.trace import SimModel
@@ -739,6 +751,7 @@ def serverless_phase(cfgs: dict, weights: dict, device="cuda") -> dict:
     sink = gw.run_trace(trace)
     replay_s = time.perf_counter() - t0
     counts = ops.launch_counts()
+    per_model = {m: dict(c) for m, c in eng.launches.items()}
     recs = sink.records
     assert len(recs) == len(eng.loads) == len(trace)
     for i, (rec, load) in enumerate(zip(recs, eng.loads)):
@@ -751,11 +764,14 @@ def serverless_phase(cfgs: dict, weights: dict, device="cuda") -> dict:
                                     if r.cold and 0 < rep.reuse_fraction < 1]}
     log(f"[serverless] starts: {kinds}; replay {replay_s:.3f} s")
     assert all(kinds.values()), kinds
-    per_model = {m: {"paged_attention": cfgs[m].num_layers * SERVERLESS_GEN * n,
-                     "flash_attention": cfgs[m].num_layers * n}
-                 for m in names for n in [sum(r.model_id == m for r in recs)]}
-    log(f"[serverless] launches {json.dumps(counts)}; by model {json.dumps(per_model)}")
+    # every layer runs K2 once per prefill and K1 once per decode step
+    expected = {m: {"paged_attention": cfgs[m].num_layers * SERVERLESS_GEN * n,
+                    "flash_attention": cfgs[m].num_layers * n}
+                for m in names for n in [sum(r.model_id == m for r in recs)]}
+    log(f"[serverless] launches {json.dumps(counts)}; by model {json.dumps(per_model)} "
+        f"(expected {json.dumps(expected)})")
     if dev.type == "cuda":
+        assert per_model == expected, (per_model, expected)
         for k in counts:
             assert counts[k] == sum(c[k] for c in per_model.values()), (counts, per_model)
     log(f"[serverless] summary {json.dumps(sink.summary())}")

@@ -269,9 +269,7 @@ def main(argv=None):
     seq = list(itertools.islice(itertools.cycle(names), args.requests))
     for i, name in enumerate(seq):
         t0 = time.time()
-        engine.free_evicted()  # free what the pool evicted (gateway.py)
         rep = engine.load(name)
-        engine.free_evicted()
         load_s = time.time() - t0
         if args.prefetch and i + 1 < len(seq) and seq[i + 1] != name:
             # the launcher IS the scheduler here: the next placement is
@@ -286,7 +284,6 @@ def main(argv=None):
                                  device=engine.device)
         prefill_s, decode_s = generate(inst, batch, args.gen_tokens)
         inst.finish()
-        engine.free_evicted()
         stats = engine.last_load
         pf = (f" prefetched={stats.bytes_prefetched/1e6:.1f}MB"
               if stats.bytes_prefetched else "")

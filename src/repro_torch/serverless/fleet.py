@@ -40,9 +40,8 @@ host_free_bytes, set_host_capacity):
     machine-independent.
 
 The trace clock is virtual in both cases; the real plane measures phase
-walls (the Gateway's split, with its walls ending on the device and its
-evicted buffers freed — see `serverless.gateway`), the modeled plane prices
-them.  Everything but the real plane's serve seam (`FleetGateway._serve`)
+walls (the Gateway's split, with its walls ending on the device — see
+`serverless.gateway`), the modeled plane prices them.  Everything but the real plane's serve seam (`FleetGateway._serve`)
 is the reference's code.
 """
 from __future__ import annotations
@@ -752,9 +751,7 @@ class FleetGateway:
         trace clock for queueing."""
         eng = node.engine
         t0 = _time.perf_counter()
-        eng.free_evicted()  # free what the pool evicted
         rep = submit_load(eng, LoadRequest(req.model_id, now=now))
-        eng.free_evicted()
         load_s = _time.perf_counter() - t0
         stats = eng.last_load
         load_s = max(0.0, load_s - stats.init_seconds
@@ -764,7 +761,6 @@ class FleetGateway:
                                    next(self._req_seq))
         prefill_s, decode_s = generate(inst, batch, self.gen_tokens)
         inst.finish()
-        eng.free_evicted()
         service_s = _time.perf_counter() - t0
         rec = TTFTRecord(
             model_id=req.model_id, arrival=now, cold=cold, queue_s=queue_s,

@@ -28,13 +28,14 @@ card (ROADMAP queue 3):
     completed and `decode_s` when the last token's has; the decode loop in
     between runs under ``torch.cuda.set_sync_debug_mode("error")``, so a
     host sync inside it raises instead of slowing it silently;
-  * **evicted buffers are freed.**  The engine keeps a tensor's device
-    buffer until `Engine.sync_evictions` drops it, and the reference
-    gateways never call it: device memory then grows past the pool, a
-    reload after an eviction counts the stale buffers as device hits while
-    its `LoadReport` says they were transferred, and a prefetch hint skips
-    the evicted tensors.  The port's gateways call `Engine.free_evicted`
-    before and after each load and after each request.
+  * **evicted buffers are freed.**  The reference engine keeps a tensor's
+    device buffer until `Engine.sync_evictions` drops it, and its gateways
+    never call it: device memory then grows past the pool, a reload after
+    an eviction counts the stale buffers as device hits while its
+    `LoadReport` says they were transferred, and a prefetch hint skips the
+    evicted tensors.  The port's `Engine` frees them itself (in `load`,
+    `release` and `finish_instance`), so the gateways here call nothing
+    extra.
 """
 from __future__ import annotations
 
@@ -312,9 +313,7 @@ class Gateway:
             queue_s = max(0.0, self._busy_until - now)
 
             t0 = _time.perf_counter()
-            self.engine.free_evicted()  # free what the pool evicted
             rep = self.engine.load(model, now=now)
-            self.engine.free_evicted()
             load_s = _time.perf_counter() - t0
             stats = self.engine.last_load
             # keep the phase split disjoint (one vocabulary with the sim
@@ -331,7 +330,6 @@ class Gateway:
             batch = self._prefill_batch(model, i)
             prefill_s, decode_s = generate(inst, batch, self.gen_tokens)
             inst.finish()
-            self.engine.free_evicted()
             # measured service wall occupies the virtual server on the
             # trace clock (decode included: the instance holds its slot
             # until the last token)

@@ -26,9 +26,11 @@ re-reads `slab.k_pages` / `slab.v_pages` at each use.
 
 The control plane's engine surface is ported too: `crash`, `fault_summary`,
 `prewarm`, `host_resident_bytes`, `host_free_bytes` and `set_host_capacity`
-(the `serverless` gateways and `core.engine_api` call them), and one
-method of its own, `free_evicted`, which the gateways call around every
-request so that what the pool evicts leaves the card.  On CUDA, `crash`
+(the `serverless` gateways and `core.engine_api` call them).  One rule is
+the port's own: what the pool evicts leaves the card.  `load` frees the
+evicted buffers once the pool has made room, and `release` and
+`finish_instance` free those a model in use kept (the reference holds every
+evicted buffer until a caller runs `sync_evictions`).  On CUDA, `crash`
 drains the copy stream, joins the prefetch worker and drops every device
 reference (live instances' included) before it swaps the state, so the
 card's memory comes back.
@@ -804,6 +806,9 @@ class Engine:
         reg = self.models[model_id]
         report = self.store.load_model(model_id, reg.records, now=now,
                                        overlap_s=overlap_s)
+        # free what the pool just evicted before the misses are allocated,
+        # so the card holds no more than the pool
+        self.sync_evictions(keep_active=True)
         stats = DataLoadStats()
         t0 = _time.perf_counter()
         job = self.prefetcher.take(model_id)
@@ -1162,6 +1167,7 @@ class Engine:
     def release(self, model_id: str):
         self.store.release(model_id)
         self._unpin_model(model_id)  # host copies become LRU-evictable
+        self.sync_evictions(keep_active=True)
 
     def retain(self, model_id: str):
         """Keep-alive retain (serverless control plane): the lifecycle
@@ -1214,6 +1220,7 @@ class Engine:
         self._instances_of.pop(model_id, None)
         self.store.release(model_id)
         self._unpin_model(model_id)
+        self.sync_evictions(keep_active=True)
 
     def drop_device_copies(self, model_id: str):
         """Release the model and evict its device buffers, so the next load
@@ -1226,29 +1233,18 @@ class Engine:
         self.store.drop_model(model_id)
         self.sync_evictions()
 
-    def sync_evictions(self):
-        """Drop data-plane buffers for tensors the store has evicted."""
-        live = set(self.store.tensor_map)
-        for fp in [fp for fp in self._tensors if fp not in live]:
-            del self._tensors[fp]
-        for mid in list(self._params_cache):
-            if any(r.fingerprint not in live for r in self.models[mid].records):
-                del self._params_cache[mid]
+    def sync_evictions(self, *, keep_active: bool = False):
+        """Drop data-plane buffers for tensors the store has evicted.
 
-    def free_evicted(self):
-        """Drop the device buffers of tensors the pool evicted, except those
-        of models in use.  The reference keeps every evicted buffer until a
-        caller runs `sync_evictions`, and its gateways never do, so device
-        memory grows past the pool; the port's control plane calls this
-        before and after every load and after every request.  A model in
-        use keeps all of its buffers: `ReuseStore.load_model` activates the
-        model only after allocating its misses, so the allocation may evict
-        the model's own resident hits, which its instances still read (the
-        pool frees them once the model is released)."""
+        With `keep_active` a model in use keeps all of its buffers:
+        `ReuseStore.load_model` activates the model only after allocating its
+        misses, so the allocation may evict the model's own resident hits,
+        which its instances still read (they go once the model is
+        released)."""
         live = set(self.store.tensor_map)
-        active = self.store.active_models
-        keep = {r.fingerprint for m in active for r in self.models[m].records}
-        for fp in [fp for fp in self._tensors if fp not in live and fp not in keep]:
+        active = self.store.active_models if keep_active else set()
+        keep = live | {r.fingerprint for m in active for r in self.models[m].records}
+        for fp in [fp for fp in self._tensors if fp not in keep]:
             del self._tensors[fp]
         for mid in list(self._params_cache):
             if mid not in active and any(r.fingerprint not in live

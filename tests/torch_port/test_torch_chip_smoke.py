@@ -77,16 +77,39 @@ def tiny_models(cs):
     return cfgs, {m: cs.draw_weights(c, i, "cpu") for i, (m, c) in enumerate(cfgs.items())}
 
 
+def count_plain_calls(monkeypatch):
+    """On the CPU the wrappers run their plain versions and count nothing;
+    make each call count as a launch, so the counters' bookkeeping runs."""
+    from repro_torch.kernels import ops
+
+    for name, fn in ops.KERNELS.items():
+        def counted(*a, _fn=fn, **k):
+            _fn.launches += 1
+            return _fn(*a, **k)
+        monkeypatch.setattr(ops, name, counted)
+
+
 def test_serverless_phase_rehearses_on_cpu(monkeypatch):
     """The [serverless] phase's trace, pool rule and checks on the CPU: warm,
     full h2d and partial-reuse cold starts, every load's bytes, the first
-    requests against the plain attention, the crash's memory check."""
+    requests against the plain attention, the crash's memory check, and each
+    model's launches as its instances counted them."""
+    from collections import Counter
+
+    from repro_torch.core.trace import SimModel
+    from repro_torch.serverless import poisson_trace
+
     cs = load_chip_smoke()
     monkeypatch.setattr(cs, "SERVERLESS_PROMPT", 40)
     monkeypatch.setattr(cs, "SERVERLESS_GEN", 4)
+    count_plain_calls(monkeypatch)
     cfgs, weights = tiny_models(cs)
     per_model = cs.serverless_phase(cfgs, weights, "cpu")
-    assert per_model["deepseek-7b"]["flash_attention"] % 4 == 0
+    trace = poisson_trace(models=[SimModel(m, 1e6, 1) for m in cfgs], **cs.SERVERLESS_TRACE)
+    n = Counter(r.model_id for r in trace)
+    assert per_model == {m: {"paged_attention": c.num_layers * 4 * n[m],
+                             "flash_attention": c.num_layers * n[m]}
+                         for m, c in cfgs.items()}
 
 
 def test_fleet_phase_rehearses_on_cpu(monkeypatch):

@@ -22,11 +22,11 @@ control plane calls (`crash`, `prewarm`, `set_host_capacity`,
 ledgers after the call sequences of tests/test_chaos.py and
 test_host_store_properties.py.
 
-Two deliberate departures of the port's gateways are pinned here too:
-they free the device buffers the pool evicted (`Engine.free_evicted`
-before and after each load and after each request), and their walls end on the
-device.  Where the pool evicts, the reference engine is given the same
-sync points, and a separate test shows what the reference does without.
+Two deliberate departures of the port are pinned here too: its `Engine`
+frees the device buffers the pool evicted (in `load`, `release` and
+`finish_instance`), and its gateways' walls end on the device.  Where the
+pool evicts, the reference engine is given the same rule, and a separate
+test shows what the reference does without.
 """
 import dataclasses
 import enum
@@ -365,28 +365,16 @@ def _report(rep):
 
 class _Recording:
     """Engine mixin: ledgers every load and the greedy tokens of every
-    instance.  With `sync` it frees evicted buffers where the port's gateways
-    do (before and after each load, after each request)."""
-
-    sync = False
+    instance."""
 
     def _init_rec(self):
         self.loads, self.tokens = [], []
 
     def load(self, model_id, **kw):
-        if self.sync:
-            PortEngine.free_evicted(self)
         rep = super().load(model_id, **kw)
         self.loads.append((model_id, _report(rep), _loads_of(self),
                            sorted(self._tensors)))
-        if self.sync:
-            PortEngine.free_evicted(self)
         return rep
-
-    def finish_instance(self, model_id):
-        super().finish_instance(model_id)
-        if self.sync:
-            PortEngine.free_evicted(self)
 
     def start_instance(self, model_id, **kw):
         inst = self._start(model_id, **kw)
@@ -403,15 +391,40 @@ class _Recording:
         return inst
 
 
-class RecRef(_Recording, RefEngine):
+class _RefStart:
     def _start(self, model_id, **kw):
         # the reference's jitted plain paged attention (tests/test_kernels.py
         # pins it to its Pallas kernel); the port's CPU tensors run its own
         return RefEngine.start_instance(self, model_id, attn_mode="ref", **kw)
 
 
-class SyncRef(RecRef):
-    sync = True
+class _FreesEvicted:
+    """The port `Engine`'s rule on the reference engine: what the pool
+    evicted is freed after `load`, `release` and `finish_instance`, sparing
+    models in use (`Engine.sync_evictions(keep_active=True)`).  The port
+    frees inside `load` before it moves the misses; a miss is never a
+    buffer it frees (the loading model is in use), so the ledgers agree."""
+
+    def load(self, model_id, **kw):
+        rep = super().load(model_id, **kw)
+        PortEngine.sync_evictions(self, keep_active=True)
+        return rep
+
+    def release(self, model_id):
+        super().release(model_id)
+        PortEngine.sync_evictions(self, keep_active=True)
+
+    def finish_instance(self, model_id):
+        super().finish_instance(model_id)
+        PortEngine.sync_evictions(self, keep_active=True)
+
+
+class RecRef(_Recording, _RefStart, RefEngine):
+    pass
+
+
+class SyncRef(_Recording, _FreesEvicted, _RefStart, RefEngine):
+    pass
 
 
 class RecPort(_Recording, PortEngine):
@@ -490,8 +503,8 @@ def _pool_for_one_model():
 @pytest.mark.parametrize("keep_alive,seed", [("fixed:45", 3), ("adaptive", 4),
                                              ("zero", 5)])
 def test_gateway_matches_reference(keep_alive, seed):
-    """A roomy pool: nothing is evicted, so the port's eviction syncs are
-    no-ops and the reference runs exactly as it ships."""
+    """A roomy pool: nothing is evicted, so the port engine's freeing of
+    evicted buffers is a no-op and the reference runs exactly as it ships."""
     ref, port = _gateway_run(RecRef, 256 << 20, keep_alive, seed)
     assert port == ref
     assert {c for _, c in ref["cold"]} == {True, False} or keep_alive == "zero"
@@ -501,7 +514,7 @@ def test_gateway_matches_reference(keep_alive, seed):
 def test_gateway_matches_reference_when_the_pool_evicts():
     """A pool that holds one model: switching models evicts part of the
     other, and the reload moves exactly the evicted bytes again (0 < reuse
-    < 1).  The reference engine gets the port gateways' sync points."""
+    < 1).  The reference engine gets the port engine's freeing rule."""
     ref, port = _gateway_run(SyncRef, _pool_for_one_model(), "zero", 6)
     assert port == ref
     partial = [ld for ld in port["loads"] if 0 < ld[1][8] < 1]
@@ -742,8 +755,8 @@ def test_a_load_can_evict_its_own_hits_and_the_port_keeps_them():
     `ReuseStore.load_model` activates the model only after allocating its
     misses, so the allocation may evict the model's own resident tensors it
     has just counted as hits.  The reference's data plane never notices (it
-    keeps every evicted buffer); the port's gateways free evicted buffers,
-    so `Engine.free_evicted` must spare a model in use — its instance still
+    keeps every evicted buffer); the port's `Engine` frees evicted buffers,
+    so it must spare a model in use — its instance still
     reads them.  Both stores make the same decision on the same sequence."""
     names = list(MODELS)
     evicted_hits = []
@@ -766,10 +779,8 @@ def test_a_load_can_evict_its_own_hits_and_the_port_keeps_them():
                     if r.fingerprint in before and r.fingerprint not in live]
             found.append((step, m, lost))
             if p is PORT and lost:
-                eng.free_evicted()
                 assert m in eng._params_cache  # spared: the model is in use
                 eng.release(m)
-                eng.free_evicted()
                 assert m not in eng._params_cache  # freed once released
             else:
                 eng.release(m)
