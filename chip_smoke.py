@@ -13,12 +13,13 @@ run outside a checkout of the repository):
 2. kernels: each kernel against its plain PyTorch version on the card, at
    the main path's shapes and a sweep of the edges of each design (fp32 /
    bf16; paged decode: lengths 0 and 1, at and +-1 around the split-KV
-   boundaries, full tables, a long context, G of 1 to 16, head dim 64 /
-   128; prefill: S of 1 to 512 around the 64-row tiles, sliding windows,
-   non-causal, head dim 32 / 64 / 128, G of 1 / 4 / 8), with the kernel's,
-   the plain version's and a PyTorch call's time beside the bound, at the
-   main path's shapes and at one long shape each (`[timing]` lines: a
-   4000-token conversation at batch 1, a 4096-token prompt);
+   boundaries, full tables, a long context, G of 1 to 16 (7 included),
+   head dim 64 / 128; prefill: S of 1 to 512 around the 64-row tiles,
+   sliding windows, non-causal, head dim 32 / 64 / 128, G of 1 / 4 / 7 /
+   8), with the kernel's, the plain version's and a PyTorch call's time
+   beside the bound, at the shapes of every model the script serves and
+   at one long shape each (`[timing]` lines: a 4000-token conversation at
+   batch 1, a 4096-token prompt);
 3. main path at full width on llama3.2-1b (random weights from a seed):
    `Engine.register_model`, a cold then a warm `Engine.load`, prefill of 4
    prompts of lengths 512/384/200/64, 1 + 32 decode steps under
@@ -43,8 +44,26 @@ run outside a checkout of the repository):
    spill to the persistent store; then the recovered engine serves a
    `Gateway` replay whose next-model hints promote spilled tensors while
    the current request runs;
-6. `[launcher]`: ``python -m repro_torch.launch.serve --trace poisson
+6. `[dedup]`: deepseek-7b and three fine-tune variants registered with
+   `Engine.register_variant` (delta leaves: the layer-stacked wq and wo).
+   With the base resident, each variant's cold load moves exactly its delta
+   over h2d and its shared leaves are the base's device storage; its first
+   logits hold against the plain attention and differ from the base's.
+   Then a pool of the base, one delta and one request's KV serves them
+   again, evicting deltas but no leaf a model in use reads;
+7. `[migration]`: a deepseek-7b decode handed from one `Engine` to another
+   on the card (`migrate_out` after 8 tokens, `migrate_in` replaying the 4
+   the source decoded after the snapshot) must give the source's logits
+   bit for bit;
+8. `[families]`: the `Gateway` as in `[serverless]`, over qwen3-moe-30b-a3b
+   (MoE, full width, 12 of its 48 layers) and qwen2-vl-7b (M-RoPE and
+   vision patches, full width and depth), 512-token prompts, a seeded
+   Poisson trace of 8 requests;
+9. `[launcher]`: ``python -m repro_torch.launch.serve --trace poisson
    --n-engines 2 --chaos`` at the launcher's own smoke sizes, on the card.
+
+Each phase frees the page-locked weights it drew before the next draws its
+own, and every phase line prints the host's memory.
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -52,6 +71,7 @@ The line before the last is the kernel table as JSON; the last line is
 from __future__ import annotations
 
 import argparse
+import contextlib
 import gc
 import json
 import math
@@ -169,8 +189,9 @@ def _timing_row(name: str, label: str, dt: str, kernel, plain, library, lib_labe
 
 def check_kernels() -> dict:
     """Every kernel against its plain version over a sweep of shapes; times
-    the main-path, long-context and deepseek-7b shapes.  Returns the rows of
-    the main path's and deepseek-7b's shapes, keyed (kernel, label)."""
+    the main-path, long-context and each served model's shapes.  Returns the
+    rows of the main path's and the served models' shapes, keyed (kernel,
+    label)."""
     import torch
     import torch.nn.functional as F
 
@@ -206,6 +227,18 @@ def check_kernels() -> dict:
         # last step of a 256-token prompt and 16 greedy tokens
         ("deepseek-7b", "bfloat16", 1, 32, 32, 128, 16, 64,
          (SERVERLESS_PROMPT + SERVERLESS_GEN,)),
+        # qwen2-vl-7b's G 7 (H 28, K 4): lengths at and +-1 around the
+        # split boundaries, and 1
+        ("", "bfloat16", 4, 28, 4, 128, 16, 64, (st16 - 1, st16, st16 + 1, 1)),
+        ("", "float32", 4, 28, 4, 128, 16, 64, (2 * st16 - 1, 2 * st16, 2 * st16 + 1, 1)),
+        ("", "bfloat16", 3, 28, 4, 128, 16, 64, (3 * st16 + 1, 1, 2 * st16)),
+        ("", "float32", 2, 28, 4, 128, 16, 64, (st16, 1)),
+        # the last decode step of [families]: a 512-token prompt and 16 greedy
+        # tokens, qwen3-moe-30b-a3b (G 8) and qwen2-vl-7b (G 7), hd 128, B 1
+        ("qwen3-moe-30b-a3b", "bfloat16", 1, 32, 4, 128, 16, 64,
+         (FAMILY_PROMPT + SERVERLESS_GEN,)),
+        ("qwen2-vl-7b", "bfloat16", 1, 28, 4, 128, 16, 64,
+         (FAMILY_PROMPT + SERVERLESS_GEN,)),
     ]
     for label, dt, B, H, K, hd, T, N, lengths in paged_cases:
         dtype = getattr(torch, dt)
@@ -236,7 +269,7 @@ def check_kernels() -> dict:
             lambda: ops.paged_attention(*args), lambda: paged_attention_ref(*args),
             lambda: F.scaled_dot_product_attention(q[:, :, None], kd, vd, attn_mask=mask),
             "sdpa on pre-gathered dense K/V", nbytes, 4 * live * H * hd, err)
-        if label in ("main", "deepseek-7b"):
+        if label != "long":
             # no single PyTorch call does paged attention: the gathered SDPA
             # above is printed, not reported as the library time
             rows[("paged_attention", label)] = {
@@ -271,6 +304,12 @@ def check_kernels() -> dict:
         ("", "bfloat16", 1, 257, 8, 8, 128, True, 0),
         # deepseek-7b's prefill in [serverless]: MHA (G 1), hd 128, B 1
         ("deepseek-7b", "bfloat16", 1, SERVERLESS_PROMPT, 32, 32, 128, True, 0),
+        # qwen2-vl-7b's G 7 (H 28, K 4), causal, around the 64-row tiles
+        *[("", dt, 1, S, 28, 4, 128, True, 0)
+          for dt in ("bfloat16", "float32") for S in (1, 63, 64, 65, 512)],
+        # the prefills of [families]: B 1, S 512, hd 128
+        ("qwen3-moe-30b-a3b", "bfloat16", 1, FAMILY_PROMPT, 32, 4, 128, True, 0),
+        ("qwen2-vl-7b", "bfloat16", 1, FAMILY_PROMPT, 28, 4, 128, True, 0),
     ]
     for label, dt, B, S, H, K, hd, causal, window in flash_cases:
         dtype = getattr(torch, dt)
@@ -295,7 +334,7 @@ def check_kernels() -> dict:
             4 * B * H * hd * (S * (S + 1) // 2),  # causal: visible pairs only
             err)
         del ref
-        if label in ("main", "deepseek-7b"):
+        if label != "long":
             rows[("flash_attention", label)] = {
                 "name": "flash_attention", "route": "cuda",
                 "source": "src/repro_torch/csrc/flash_attention.cu",
@@ -305,7 +344,10 @@ def check_kernels() -> dict:
 
 
 SHAPE_NOTES = {"main": "llama3.2-1b, main path (launches: main path)",
-               "deepseek-7b": "deepseek-7b, [serverless] (launches: its requests there)"}
+               "deepseek-7b": "deepseek-7b, [serverless] (launches: its requests there)",
+               "qwen3-moe-30b-a3b": "qwen3-moe-30b-a3b (12 of 48 layers), [families] "
+                                    "(launches: its requests there)",
+               "qwen2-vl-7b": "qwen2-vl-7b, [families] (launches: its requests there)"}
 
 
 def _bound(nbytes: int, flops: int, dtype: str) -> tuple[float, str]:
@@ -534,6 +576,26 @@ SERVERLESS_TRACE = dict(n_requests=10, seed=0, mean_interarrival=20.0)
 SERVERLESS_KEEP_ALIVE = "fixed:10"
 SERVERLESS_PROMPT, SERVERLESS_GEN = 256, 16
 FLEET_TRACE = dict(n_requests=10, seed=3, mean_interarrival=20.0)
+# [families]: qwen3-moe-30b-a3b cut to 12 of its 48 layers (16.2 of 61.1 GB,
+# so the weights drawn on the card and kept page-locked on the host fit the
+# machine) and qwen2-vl-7b whole; 512-token prompts, so 256 text tokens
+# follow the 256 vision patches.  Seed 25 of the 20 s Poisson trace at 8
+# requests gives, under the 10 s keep-alive, full h2d cold starts (0, 1),
+# partial-reuse cold starts (2, 4, 5), warm starts (3, 6) and a cold start
+# that finds the whole model still in the pool (7), and no arrival finds the
+# other model warm (the pool cannot hold both retained).
+FAMILY_MODELS = ("qwen3-moe-30b-a3b", "qwen2-vl-7b")
+FAMILY_MOE_LAYERS = 12
+FAMILY_TRACE = dict(n_requests=8, seed=25, mean_interarrival=20.0)
+FAMILY_PROMPT = 512
+# [dedup]: deepseek-7b's fine-tune variants, each differing from the base in
+# layer-stacked wq and wo (2,013,265,920 of 13,821,231,104 B)
+DEDUP_VARIANTS = 3
+DEDUP_DELTAS = ("segments/0/0/attn/wq", "segments/0/0/attn/wo")
+KV_ROOM = 512 << 20  # pool bytes left for one request's KV beside the weights
+# [migration]: decode steps on the source before the snapshot; the window
+# replayed on the target is the fleet's `migrate_replay_tokens` default
+MIGRATE_BEFORE, MIGRATE_WINDOW = 8, 4
 FLEET_CHAOS_SEED = 1  # the seeded pick crashes engine0
 FLEET_HOST_CACHE = 1 << 30  # per engine: released tensors spill past 1 GiB
 CHUNK_BYTES = 16 << 20  # the engines' h2d chunk (Engine's default)
@@ -577,6 +639,21 @@ def host_memory() -> str:
         return f"host RSS {int(rss) / 2**20:.1f} GiB, available {int(avail) / 2**20:.1f} GiB"
     except (OSError, StopIteration):
         return "host memory not measured"
+
+
+def release_memory():
+    """Give back what finished phases freed: device blocks PyTorch's caching
+    allocator holds, and the page-locked host blocks its host allocator
+    caches (freed pinned tensors otherwise stay resident in this process)."""
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    empty_host = getattr(torch._C, "_host_emptyCache", None)
+    if empty_host is None:
+        log("[memory] this torch cannot empty its page-locked host cache")
+    else:
+        empty_host()
 
 
 def allocated(dev) -> int:
@@ -663,34 +740,86 @@ def recording_engine():
     return RecordingEngine
 
 
-def hold_first_tokens(eng, names):
-    """The first request of each model through the plain attention (flash
-    and paged) on the same engine, weights, prompt and fed token: its first
-    prefill and decode logits within the bf16 tolerance relative to scale."""
+@contextlib.contextmanager
+def router_choices(record=None, replay=None):
+    """Record the expert choices of every MoE layer (`torch.topk` in
+    `moe_forward`, the only top-k of a forward) into `record`, or make them
+    the ones in `replay`, in call order, each weighted by the router's own
+    probabilities.  Only for holding a path against another: in bf16 a
+    token whose k-th and (k+1)-th expert probabilities nearly tie may be
+    routed either way by two paths that round differently."""
+    import torch
+
+    real = torch.topk
+    calls = iter(replay) if replay is not None else None
+
+    def topk(x, k, dim=-1, **kw):
+        if calls is not None:
+            idx = next(calls)
+            return x.gather(dim, idx), idx
+        out = real(x, k, dim=dim, **kw)
+        record.append(out.indices.clone())
+        return out
+
+    torch.topk = topk
+    try:
+        yield
+    finally:
+        torch.topk = real
+
+
+def first_logits(eng, m, batch, token, plain=False) -> dict:
+    """Prefill and first-decode logits of a fresh instance of `m`; `plain`
+    runs both through the plain attention (flash and paged)."""
     from repro_torch.kernels import ops
     from repro_torch.kernels.ref import flash_attention_ref
 
+    inst = eng.start_instance(m, attn_mode="ref" if plain else "kernel")
+    kernel = ops.flash_attention
+    if plain:
+        ops.flash_attention = flash_attention_ref  # the plain prefill path
+    try:
+        out = {"prefill": inst.prefill(batch)}
+    finally:
+        ops.flash_attention = kernel
+    out["decode"] = inst.decode(token)
+    inst.finish()
+    return out
+
+
+def rel_err(got, want) -> float:
+    """max |diff| / max(1, max |want|)."""
+    got, want = got.float(), want.float()
+    return float((got - want).abs().max()) / max(1.0, float(want.abs().max()))
+
+
+def hold_first_tokens(eng, names, tag="serverless"):
+    """The first request of each model through the plain attention (flash
+    and paged) on the same engine, weights, prompt and fed token: its first
+    prefill and decode logits within the bf16 tolerance relative to scale.
+    A MoE model's plain run takes the expert choices of a rerun of its
+    kernel path (which must give the first request's logits again)."""
     worst = {}
     for m in names:
         rec = eng.first[m]
         eng.load(m)
-        inst = eng.start_instance(m, attn_mode="ref")
-        kernel = ops.flash_attention
-        ops.flash_attention = flash_attention_ref  # the plain prefill path
-        try:
-            plain = {"prefill": inst.prefill(rec["batch"])}
-        finally:
-            ops.flash_attention = kernel
-        plain["decode"] = inst.decode(rec["token"])
-        inst.finish()
+        route = []
+        held = rec
+        if eng.models[m].cfg.is_moe:
+            with router_choices(record=route):
+                held = first_logits(eng, m, rec["batch"], rec["token"])
+            for step in ("prefill", "decode"):
+                err = rel_err(held[step], rec[step])
+                worst[(m, f"{step} rerun")] = err
+                assert err <= TOL["bfloat16"], f"{m} {step} rerun: {err}"
+        replay = router_choices(replay=route) if route else contextlib.nullcontext()
+        with replay:
+            plain = first_logits(eng, m, rec["batch"], rec["token"], plain=True)
         eng.release(m)
         for step, want in plain.items():
-            got, want = rec[step].float(), want.float()
-            err = float((got - want).abs().max())
-            scale = max(1.0, float(want.abs().max()))
-            worst[(m, step)] = err / scale
-            assert err <= TOL["bfloat16"] * scale, f"{m} {step}: logits differ by {err}"
-    log("[serverless] first request of each model vs the plain attention path: "
+            worst[(m, step)] = err = rel_err(held[step], want)
+            assert err <= TOL["bfloat16"], f"{m} {step}: logits differ by {err} of scale"
+    log(f"[{tag}] first request of each model vs the plain attention path: "
         + ", ".join(f"{m} {step} {e:.3e}" for (m, step), e in worst.items())
         + f" (max |diff| / scale, tol {TOL['bfloat16']:g})")
 
@@ -722,9 +851,11 @@ def model_sizes(cfgs: dict) -> dict:
     return {m: sum(r.nbytes for r in spec_records(m, cfg)) for m, cfg in cfgs.items()}
 
 
-def serverless_phase(cfgs: dict, weights: dict, device="cuda") -> dict:
-    """The single-engine `Gateway` over `cfgs`; returns the launch counts of
-    each model's requests, as the counters measured them."""
+def serverless_phase(cfgs: dict, weights: dict, device="cuda", *, tag="serverless",
+                     trace_kw=None, prompt=None) -> dict:
+    """The single-engine `Gateway` over `cfgs` (`[serverless]`, and with
+    `tag`, `trace_kw` and `prompt` the `[families]` phase); returns the
+    launch counts of each model's requests, as the counters measured them."""
     import torch
 
     from repro_torch.core.trace import SimModel
@@ -732,20 +863,22 @@ def serverless_phase(cfgs: dict, weights: dict, device="cuda") -> dict:
     from repro_torch.launch.serve import _print_ttft_breakdown
     from repro_torch.serverless import Gateway, poisson_trace
 
+    trace_kw = trace_kw or SERVERLESS_TRACE
+    prompt = prompt or SERVERLESS_PROMPT
     dev = torch.device(device)
     names = list(cfgs)
     sizes = model_sizes(cfgs)
     pool = max(sizes.values()) + min(sizes.values()) // 2  # never both models
-    eng = recording_engine()(pool, device=dev, engine_id="serverless")
+    eng = recording_engine()(pool, device=dev, engine_id=tag)
     for m in names:
         eng.register(m, cfgs[m], init_fn=lambda w=weights[m]: w)
     gc.collect()  # what earlier phases left in reference cycles
     base = allocated(dev)
-    trace = poisson_trace(models=[SimModel(m, 1e6, 1) for m in names], **SERVERLESS_TRACE)
-    gw = Gateway(eng, keep_alive=SERVERLESS_KEEP_ALIVE, prompt_len=SERVERLESS_PROMPT,
+    trace = poisson_trace(models=[SimModel(m, 1e6, 1) for m in names], **trace_kw)
+    gw = Gateway(eng, keep_alive=SERVERLESS_KEEP_ALIVE, prompt_len=prompt,
                  gen_tokens=SERVERLESS_GEN)
-    log(f"[serverless] pool {pool} B; models {sizes}; trace {SERVERLESS_TRACE}, keep-alive "
-        f"{SERVERLESS_KEEP_ALIVE}, prompt {SERVERLESS_PROMPT}, {SERVERLESS_GEN} tokens")
+    log(f"[{tag}] pool {pool} B; models {sizes}; trace {trace_kw}, keep-alive "
+        f"{SERVERLESS_KEEP_ALIVE}, prompt {prompt}, {SERVERLESS_GEN} tokens")
     ops.reset_launch_counts()
     t0 = time.perf_counter()
     sink = gw.run_trace(trace)
@@ -755,35 +888,272 @@ def serverless_phase(cfgs: dict, weights: dict, device="cuda") -> dict:
     recs = sink.records
     assert len(recs) == len(eng.loads) == len(trace)
     for i, (rec, load) in enumerate(zip(recs, eng.loads)):
-        log("[serverless] " + _load_line(i, rec, load, sizes[load[0]]))
+        log(f"[{tag}] " + _load_line(i, rec, load, sizes[load[0]]))
     check_loads(eng.loads, sizes)
     kinds = {"warm": [i for i, r in enumerate(recs) if not r.cold],
              "full h2d cold": [i for i, (r, (m, _, st)) in enumerate(zip(recs, eng.loads))
                                if r.cold and st.bytes_h2d == sizes[m]],
              "partial-reuse cold": [i for i, (r, (_, rep, _)) in enumerate(zip(recs, eng.loads))
                                     if r.cold and 0 < rep.reuse_fraction < 1]}
-    log(f"[serverless] starts: {kinds}; replay {replay_s:.3f} s")
+    log(f"[{tag}] starts: {kinds}; replay {replay_s:.3f} s")
     assert all(kinds.values()), kinds
     # every layer runs K2 once per prefill and K1 once per decode step
     expected = {m: {"paged_attention": cfgs[m].num_layers * SERVERLESS_GEN * n,
                     "flash_attention": cfgs[m].num_layers * n}
                 for m in names for n in [sum(r.model_id == m for r in recs)]}
-    log(f"[serverless] launches {json.dumps(counts)}; by model {json.dumps(per_model)} "
+    log(f"[{tag}] launches {json.dumps(counts)}; by model {json.dumps(per_model)} "
         f"(expected {json.dumps(expected)})")
     if dev.type == "cuda":
         assert per_model == expected, (per_model, expected)
         for k in counts:
             assert counts[k] == sum(c[k] for c in per_model.values()), (counts, per_model)
-    log(f"[serverless] summary {json.dumps(sink.summary())}")
+    log(f"[{tag}] summary {json.dumps(sink.summary())}")
     _print_ttft_breakdown(recs)
-    hold_first_tokens(eng, names)
+    decode_floors(tag, cfgs, recs)
+    hold_first_tokens(eng, names, tag)
     eng.crash()
     after = allocated(dev)
-    log(f"[serverless] crash: device memory {after} B allocated, {base} B before the first "
+    log(f"[{tag}] crash: device memory {after} B allocated, {base} B before the first "
         f"load (one chunk = {CHUNK_BYTES} B)")
     assert after - base <= CHUNK_BYTES, (base, after)
     eng.close()
     return per_model
+
+
+def decode_floors(tag, cfgs, recs):
+    """Each model's decode wall per token against its weight-read floor: a
+    step reads every weight once (the dense einsum over (E, cap) reads
+    every expert of a MoE layer), the embedding table aside, at the card's
+    memory rate."""
+    from repro_torch.models.tensors import spec_records
+
+    for m, cfg in cfgs.items():
+        nbytes = sum(r.nbytes for r in spec_records(m, cfg) if not r.name.endswith("/embed"))
+        walls = [r.decode_s / SERVERLESS_GEN * 1e3 for r in recs if r.model_id == m]
+        log(f"[{tag}] {m}: decode {min(walls):.3f}-{max(walls):.3f} ms/token at B 1 against a "
+            f"weight-read floor of {nbytes / HBM_BYTES_PER_S * 1e3:.3f} ms ({nbytes} B a step)")
+
+
+def family_configs() -> dict:
+    """qwen3-moe-30b-a3b at full width with 12 of its 48 layers, and
+    qwen2-vl-7b whole."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    moe = get_config(FAMILY_MODELS[0])
+    return {FAMILY_MODELS[0]: dataclasses.replace(moe, num_layers=FAMILY_MOE_LAYERS),
+            FAMILY_MODELS[1]: get_config(FAMILY_MODELS[1])}
+
+
+def families_phase(cfgs: dict, weights: dict, device="cuda") -> dict:
+    """`[families]`: the `Gateway` over a MoE and a VLM model (`serverless_phase`
+    with the families' trace and prompt)."""
+    return serverless_phase(cfgs, weights, device, tag="families", trace_kw=FAMILY_TRACE,
+                            prompt=FAMILY_PROMPT)
+
+
+def host_tree(eng, m):
+    """Model `m`'s parameter tree over the engine's host-tier tensors."""
+    from repro_torch.models.tensors import tree_unflatten
+
+    reg = eng.models[m]
+    return tree_unflatten(reg.treedef, [eng.host_store.get(r.fingerprint) for r in reg.records])
+
+
+def dedup_phase(cfg, weights, device="cuda") -> dict:
+    """`[dedup]`: fine-tune variants of one base share its device tensors.
+
+    With the base resident, each variant's cold load moves exactly its delta
+    leaves over h2d (the default `register_variant` perturbation), its
+    shared leaves are the base's device storage, its first-token logits
+    hold against the plain attention path and differ from the base's.  Then
+    a pool of the base, one delta and one request's KV serves the variants
+    again: the pool evicts deltas, never a leaf an active sharer reads, and
+    each variant gives the same logits as before."""
+    import torch
+
+    from repro_torch.models.tensors import VariantSpec, flatten_params, spec_records
+    from repro_torch.serverless.gateway import greedy, make_prefill_batch
+    from repro_torch.serving.engine import Engine
+
+    dev = torch.device(device)
+    base = cfg.name
+    base_recs = spec_records(base, cfg)
+    size = sum(r.nbytes for r in base_recs)
+    vspecs = [VariantSpec(f"{base}-ft{i}", base, DEDUP_DELTAS) for i in range(DEDUP_VARIANTS)]
+    variants = [vs.variant_id for vs in vspecs]
+    base_fps = {r.fingerprint for r in base_recs}
+    delta = sum(r.nbytes for r in spec_records(vspecs[0].to_model_spec(), cfg)
+                if r.fingerprint not in base_fps)
+    pool = size + DEDUP_VARIANTS * delta + KV_ROOM
+    eng = Engine(pool, device=dev, engine_id="dedup")
+    eng.register(base, cfg, init_fn=lambda: weights)
+    for vs in vspecs:
+        eng.register_variant(vs)
+    log(f"[dedup] base {base} {size} B; {DEDUP_VARIANTS} variants, delta leaves "
+        f"{list(DEDUP_DELTAS)} ({delta} B); pool {pool} B")
+    batch = make_prefill_batch(eng, base, SERVERLESS_PROMPT, 0)
+    eng.load(base)
+    eng.retain(base)  # resident and in use while the variants load
+    base_leaves = dict(flatten_params(eng.params_of(base)))
+    inst = eng.start_instance(base)
+    token = greedy(inst.prefill(batch))  # fed to every model's first decode
+    inst.finish()
+    logits = {base: first_logits(eng, base, batch, token)}
+    for v in variants:
+        t0 = time.perf_counter()
+        rep = eng.load(v)
+        load_s = time.perf_counter() - t0
+        st = eng.last_load
+        log(f"[dedup] {v} cold load {load_s * 1e3:.3f} ms (init {st.init_seconds * 1e3:.3f} ms, "
+            f"h2d {st.transfer_seconds * 1e3:.3f} ms): bytes h2d {st.bytes_h2d}, device-hit "
+            f"{st.bytes_device_hit}, materialized leaves {st.leaves_materialized}, reuse "
+            f"{rep.reuse_fraction:.4f}")
+        assert st.bytes_h2d == delta == rep.bytes_transferred, (st.as_dict(), delta)
+        assert st.bytes_device_hit == size - delta
+        check_sharing(eng, v, base_leaves)
+        logits[v] = first_logits(eng, v, batch, token)
+        plain = first_logits(eng, v, batch, token, plain=True)
+        errs = {step: rel_err(logits[v][step], plain[step]) for step in plain}
+        apart = {step: rel_err(logits[v][step], logits[base][step]) for step in plain}
+        log(f"[dedup] {v} first logits vs the plain path {errs} (tol {TOL['bfloat16']:g}); "
+            f"vs the base {apart}")
+        assert all(e <= TOL["bfloat16"] for e in errs.values()), errs
+        assert all(e > TOL["bfloat16"] for e in apart.values()), apart
+        eng.release(v)
+    dedup = eng.store.dedup_stats().as_dict()
+    log(f"[dedup] pool ledger {json.dumps(dedup)}; {host_memory()}")
+    assert dedup["sharer_orphans"] == 0
+
+    # the same models on a pool of the base, one delta and one request's KV
+    small = size + delta + KV_ROOM
+    eng2 = Engine(small, device=dev, engine_id="dedup-small")
+    eng2.register(base, cfg, init_fn=lambda: weights)
+    for v in variants:
+        eng2.register_variant(VariantSpec(v, base, DEDUP_DELTAS),
+                              init_fn=lambda t=host_tree(eng, v): t)
+    eng.close()
+    del eng, base_leaves
+    gc.collect()
+    eng2.load(base)
+    eng2.retain(base)
+    base_leaves = dict(flatten_params(eng2.params_of(base)))
+    served, reloaded = [], 0
+    for v in variants + variants[:1]:  # the last load finds its delta evicted
+        missing = sum(r.nbytes for r in eng2.records_of(v) if r.fingerprint not in eng2._tensors)
+        rep = eng2.load(v)
+        st = eng2.last_load
+        assert st.bytes_h2d == missing == rep.bytes_transferred, (v, st.bytes_h2d, missing)
+        reloaded += missing if v in served else 0
+        check_sharing(eng2, v, base_leaves)
+        again = first_logits(eng2, v, batch, token)
+        same = all(torch.equal(again[k], logits[v][k]) for k in again)
+        err = max(rel_err(again[k], logits[v][k]) for k in again)
+        assert err <= TOL["bfloat16"], (v, err)
+        eng2.release(v)
+        served.append(v)
+        evicted = [w for w in served if any(r.fingerprint not in eng2._tensors
+                                            for r in eng2.records_of(w))]
+        log(f"[dedup] pool {small} B: {v} bytes h2d {st.bytes_h2d}, reuse "
+            f"{rep.reuse_fraction:.4f}; logits as on the large pool "
+            f"({'bit for bit' if same else f'{err:.3e} of scale'}); variants whose delta "
+            f"left the card: {evicted}")
+    assert reloaded > 0, "the small pool never evicted a delta"
+    assert eng2.store.dedup_stats().sharer_orphans == 0
+    eng2.close()
+    del eng2
+    gc.collect()
+    return {"delta_bytes": delta}
+
+
+def check_sharing(eng, v, base_leaves):
+    """Variant `v`'s shared leaves are the base's device tensors (same
+    storage); its delta leaves are its own and differ from the base's; every
+    leaf of a model in use is on the card."""
+    import torch
+
+    from repro_torch.models.tensors import flatten_params
+
+    spec = eng.models[v].spec
+    for name, leaf in flatten_params(eng.params_of(v)):
+        b = base_leaves[name]
+        if spec.is_delta(name):
+            assert leaf.data_ptr() != b.data_ptr() and not torch.equal(leaf, b), name
+        else:
+            assert leaf.data_ptr() == b.data_ptr(), name
+    for m in eng.store.active_models:
+        assert all(r.fingerprint in eng._tensors for r in eng.records_of(m)), m
+
+
+def migration_phase(cfg, weights, device="cuda") -> dict:
+    """`[migration]`: a live decode handed from one `Engine` to another on the
+    card (`migrate_out` -> `migrate_in`), whose replayed window must equal
+    the source's logits bit for bit."""
+    import torch
+
+    from repro_torch.serverless.gateway import greedy, make_prefill_batch, settle, sync_free
+    from repro_torch.serving.engine import Engine
+
+    dev = torch.device(device)
+    m = cfg.name
+    size = model_sizes({m: cfg})[m]
+    src, dst = (Engine(size + KV_ROOM, device=dev, engine_id=e) for e in ("src", "dst"))
+    for e in (src, dst):
+        e.register(m, cfg, init_fn=lambda: weights)
+        e.load(m)
+    inst = src.start_instance(m)
+    tok = settle(greedy(inst.prefill(make_prefill_batch(src, m, SERVERLESS_PROMPT, 0))))
+    with sync_free(dev):
+        for _ in range(MIGRATE_BEFORE):
+            tok = greedy(inst.decode(tok))
+    settle(tok)
+    t0 = time.perf_counter()
+    mig = src.migrate_out(m, "seq0")
+    d2h_s = time.perf_counter() - t0
+    window = []
+    for _ in range(MIGRATE_WINDOW):
+        mig.replay.append(int(tok[0]))
+        logits = inst.decode(tok)
+        window.append(logits.clone())
+        tok = greedy(logits)
+    walls = {}
+    transfer = dst._xfer.transfer
+
+    def timed(items, stats=None):
+        t = time.perf_counter()
+        out = transfer(items, stats)
+        walls["h2d"] = time.perf_counter() - t
+        walls["h2d_end"] = time.perf_counter()
+        return out
+
+    dst._xfer.transfer = timed
+    try:
+        inst2, replayed = dst.migrate_in(mig)
+        settle(replayed[-1])
+    finally:
+        dst._xfer.transfer = transfer
+    replay_s = time.perf_counter() - walls["h2d_end"]
+    equal = [torch.equal(a, b) for a, b in zip(replayed, window)]
+    log(f"[migration] {m}: snapshot of {mig.snap.num_blocks} pages ({mig.nbytes()} B, K + V) "
+        f"at length {mig.snap.seq_len}; d2h snapshot {d2h_s * 1e3:.3f} ms "
+        f"({mig.nbytes() / d2h_s / 1e9:.2f} GB/s), h2d restore {walls['h2d'] * 1e3:.3f} ms "
+        f"({mig.nbytes() / walls['h2d'] / 1e9:.2f} GB/s), scatter + replay of "
+        f"{len(replayed)} tokens {replay_s * 1e3:.3f} ms; replayed logits bit-identical: "
+        f"{equal}; counters out {src.migrated_out} / in {dst.migrated_in} / bytes "
+        f"{src.migration_bytes}")
+    assert len(replayed) == MIGRATE_WINDOW and all(equal), equal
+    assert src.migrated_out == dst.migrated_in == 1
+    assert src.migration_bytes == mig.nbytes()
+    T = src.block_tokens
+    blocks = -(-(SERVERLESS_PROMPT + MIGRATE_BEFORE) // T)
+    page = T * cfg.num_kv_heads * cfg.resolved_head_dim * window[0].element_size()
+    assert mig.snap.num_blocks == blocks
+    assert mig.nbytes() == 2 * cfg.num_layers * blocks * page, (mig.nbytes(), blocks)
+    inst.finish(), inst2.finish()
+    for e in (src, dst):
+        e.close()
+    return {"bytes": mig.nbytes(), "d2h_s": d2h_s, "h2d_s": walls["h2d"]}
 
 
 # ------------------------------------------------------------------ phase 5
@@ -923,10 +1293,10 @@ def main(argv=None) -> int:
     smi = setup()
     t0 = time.perf_counter()
     rows = check_kernels()
-    log(f"[phase] kernels {time.perf_counter() - t0:.1f} s")
+    log(f"[phase] kernels {time.perf_counter() - t0:.1f} s; {host_memory()}")
     t0 = time.perf_counter()
     counts = main_path()
-    log(f"[phase] main path {time.perf_counter() - t0:.1f} s")
+    log(f"[phase] main path {time.perf_counter() - t0:.1f} s; {host_memory()}")
     from repro_torch.configs import get_config
 
     t0 = time.perf_counter()
@@ -934,24 +1304,43 @@ def main(argv=None) -> int:
     weights = {m: draw_weights(cfg, seed) for seed, (m, cfg) in enumerate(cfgs.items())}
     log(f"[phase] weights drawn {time.perf_counter() - t0:.1f} s; {host_memory()}")
     t0 = time.perf_counter()
-    per_model = serverless_phase(cfgs, weights)
+    launches = serverless_phase(cfgs, weights)
     log(f"[phase] serverless {time.perf_counter() - t0:.1f} s; {host_memory()}")
     t0 = time.perf_counter()
     fleet_phase(cfgs, weights)
     log(f"[phase] fleet {time.perf_counter() - t0:.1f} s; {host_memory()}")
+    # deepseek-7b's page-locked tree serves [dedup] and [migration] too
+    big = weights.pop("deepseek-7b")
     del weights
-    gc.collect()
+    release_memory()
+    t0 = time.perf_counter()
+    dedup_phase(cfgs["deepseek-7b"], big)
+    log(f"[phase] dedup {time.perf_counter() - t0:.1f} s; {host_memory()}")
+    t0 = time.perf_counter()
+    migration_phase(cfgs["deepseek-7b"], big)
+    log(f"[phase] migration {time.perf_counter() - t0:.1f} s; {host_memory()}")
+    del big
+    release_memory()
+    log(f"[phase] memory released; {host_memory()}")
+    t0 = time.perf_counter()
+    fcfgs = family_configs()
+    weights = {m: draw_weights(cfg, 10 + seed) for seed, (m, cfg) in enumerate(fcfgs.items())}
+    log(f"[phase] family weights drawn {time.perf_counter() - t0:.1f} s; {host_memory()}")
+    t0 = time.perf_counter()
+    launches.update(families_phase(fcfgs, weights))
+    log(f"[phase] families {time.perf_counter() - t0:.1f} s; {host_memory()}")
+    del weights
+    release_memory()
     t0 = time.perf_counter()
     launcher_phase()
-    log(f"[phase] launcher {time.perf_counter() - t0:.1f} s")
+    log(f"[phase] launcher {time.perf_counter() - t0:.1f} s; {host_memory()}")
     for (name, label), row in rows.items():
-        row["launches"] = counts[name] if label == "main" else per_model["deepseek-7b"][name]
+        row["launches"] = counts[name] if label == "main" else launches[label][name]
     kernels = [{k: rows[key][k] for k in ("name", "route", "source", "replaces", "shape",
                                           "launches", "max_abs_err", "ms", "plain_ms",
                                           "bound_ms", "bound_by", "library_ms")}
-               for key in (("paged_attention", "main"), ("flash_attention", "main"),
-                           ("paged_attention", "deepseek-7b"),
-                           ("flash_attention", "deepseek-7b"))]
+               for key in sorted(rows, key=lambda key: (list(SHAPE_NOTES).index(key[1]),
+                                                         key[0] != "paged_attention"))]
     log(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

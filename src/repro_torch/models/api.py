@@ -72,23 +72,39 @@ class Model:
     # ------------------------------------------------- concrete smoke batches
     def make_batch(self, gen: torch.Generator, shape: ShapeConfig, *,
                    device="cuda") -> dict[str, Any]:
-        """Concrete random prefill inputs: tokens uniform over the vocab, plus
-        the VLM stub's patch embeddings and text-style M-RoPE positions."""
+        """Concrete random inputs of the reference's `make_batch` for `shape`.
+
+        train / prefill: tokens uniform over the vocab, plus the VLM stub's
+        patch embeddings (standard normal cast to the model's dtype, then
+        scaled by 0.02 in it) and text-style M-RoPE positions.  decode: one
+        token per sequence, positions 0 and a cache of capacity
+        `shape.seq_len` (K/V drawn as the embeddings are, `kv_pos` 0)."""
         _check_family(self.cfg)
         device = resolve_device(device)
-        if shape.kind not in ("train", "prefill"):
-            raise ValueError(f"make_batch builds prefill inputs, not {shape.kind!r}")
         cfg = self.cfg
         B, S = shape.global_batch, shape.seq_len
-        batch = {"tokens": torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
-                                         dtype=torch.int32).to(device)}
-        if cfg.family == "vlm":
-            emb = torch.randn((B, cfg.vision_stub_patches, cfg.d_model),
-                              generator=gen) * 0.02
-            batch["vision_embeds"] = emb.to(device=device, dtype=cfg.torch_dtype)
-            batch["mrope_positions"] = torch.arange(
-                S, dtype=torch.int32, device=device).expand(3, B, S)
-        return batch
+
+        def tokens(*size):
+            return torch.randint(0, cfg.vocab_size, size, generator=gen,
+                                 dtype=torch.int32).to(device)
+
+        def normal(size, dtype):
+            return torch.randn(size, generator=gen).to(device=device, dtype=dtype) * 0.02
+
+        if shape.kind in ("train", "prefill"):
+            batch = {"tokens": tokens(B, S)}
+            if cfg.family == "vlm":
+                batch["vision_embeds"] = normal((B, cfg.vision_stub_patches, cfg.d_model),
+                                                cfg.torch_dtype)
+                batch["mrope_positions"] = torch.arange(
+                    S, dtype=torch.int32, device=device).expand(3, B, S)
+            return batch
+        cache = [tuple({key: (torch.zeros(shp, dtype=dt, device=device)
+                              if dt == torch.int32 else normal(shp, dt))
+                        for key, (shp, dt) in unit.items()} for unit in seg)
+                 for seg in self.cache_specs(B, S)]
+        return {"token": tokens(B), "pos": torch.zeros((B,), dtype=torch.int32, device=device),
+                "cache": cache}
 
 
 def build_model(cfg: ModelConfig) -> Model:

@@ -9,9 +9,11 @@ Each kind exposes:
 
 Prefill attention goes through the flash kernel (`kernels.ops`), which
 computes the same function as the reference's `attention_dense` for
-prefill's arange positions.  The MoE MLP, Mamba2 ("ssd") and RG-LRU
-("rglru") kinds have their parameter trees (so every architecture's tensor
-records match the reference's) but their forward and decode raise.
+prefill's arange positions.  The MoE MLP is the reference's scatter
+dispatch (`moe_forward`; its grouped and GShard dispatches are not ported).
+The Mamba2 ("ssd") and RG-LRU ("rglru") kinds have their parameter trees
+(so every architecture's tensor records match the reference's) but raise
+when run.
 """
 from __future__ import annotations
 
@@ -20,6 +22,7 @@ from dataclasses import dataclass
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops as kops
@@ -189,6 +192,70 @@ def init_moe(gen, cfg: ModelConfig, device):
     }
 
 
+def moe_capacity(tokens: int, k: int, experts: int, capacity_factor: float) -> int:
+    """Slots per expert: ceil(T*k/E*cf) rounded up to a multiple of 8, at
+    least 8.  A host integer from static shapes, so dispatch never reads the
+    device."""
+    cap = int(math.ceil(tokens * k / experts * capacity_factor))
+    return max(8, -(-cap // 8) * 8)
+
+
+def moe_forward(p, x, cfg: ModelConfig, capacity_factor: float):
+    """Top-k expert dispatch with per-expert capacity (the reference's scatter
+    dispatch).
+
+    Each (token, choice) pair takes the next slot of its expert in flattened
+    (T*k) order; pairs past an expert's capacity are dropped (their slot is
+    `cap`, one spare row per expert that is written, never read back, and
+    sliced off before the expert products).  Sync-free on CUDA: the
+    capacity is a host integer, the one-hot is a scatter, and dispatch and
+    combine are one `index_copy_` / `index_select` over linear slot ids.
+    `torch.topk` orders equal probabilities as it likes; the reference's
+    `jax.lax.top_k` puts the lower expert first, so the two agree wherever
+    the top-k probabilities do not tie.
+    """
+    B, S, D = x.shape
+    E, k = cfg.num_experts, cfg.experts_per_token
+    T = B * S
+    xf = x.reshape(T, D)
+
+    logits = xf.to(common.F32) @ p["router"]
+    probs = torch.softmax(logits, dim=-1)
+    w, idx = torch.topk(probs, k, dim=-1)  # (T, k)
+    w = w / torch.clamp(w.sum(-1, keepdim=True), min=1e-9)
+
+    cap = moe_capacity(T, k, E, capacity_factor)
+    flat_e = idx.reshape(-1)  # (T*k,)
+    onehot = torch.zeros((T * k, E), dtype=torch.int32, device=x.device)
+    onehot.scatter_(1, flat_e[:, None], 1)
+    pos = (torch.cumsum(onehot, dim=0) * onehot).sum(-1) - 1  # slot in expert
+    keep = pos < cap
+    slot = torch.where(keep, pos, cap)  # dropped pairs land in slot `cap`
+    row = flat_e * (cap + 1) + slot  # row of the (E*(cap+1), D) buffer
+
+    xr = xf[:, None, :].expand(T, k, D).reshape(T * k, D)
+    buf = torch.zeros((E * (cap + 1), D), dtype=x.dtype, device=x.device)
+    buf.index_copy_(0, row, xr)
+    xe = buf.view(E, cap + 1, D)[:, :cap]  # (E, cap, D)
+
+    h = F.silu(torch.bmm(xe, p["wg"])) * torch.bmm(xe, p["wu"])
+    ye = torch.bmm(h, p["wd"])  # (E, cap, D)
+
+    ye_pad = torch.cat([ye, ye.new_zeros((E, 1, D))], dim=1).reshape(E * (cap + 1), D)
+    y_tok = ye_pad.index_select(0, row)  # (T*k, D)
+    y_tok = y_tok * (w.reshape(-1, 1) * keep[:, None]).to(y_tok.dtype)
+    y = y_tok.reshape(T, k, D).sum(dim=1)
+    return y.reshape(B, S, D)
+
+
+# The capacity factors the reference's serving callers give `moe_forward`:
+# 1.25 in prefill (`lm.forward`'s default, src/repro/models/lm.py:87) and
+# 4.0 in every decode step (`lm.decode_step`, src/repro/models/lm.py:109;
+# the paged step, src/repro/serving/engine.py:1783).
+PREFILL_CAPACITY_FACTOR = 1.25
+DECODE_CAPACITY_FACTOR = 4.0
+
+
 # ============================================================== transformer block
 def init_block(gen, cfg: ModelConfig, kind: str, device):
     return {
@@ -199,9 +266,9 @@ def init_block(gen, cfg: ModelConfig, kind: str, device):
     }
 
 
-def _mlp(p, h, cfg: ModelConfig):
+def _mlp(p, h, cfg: ModelConfig, capacity_factor: float):
     if cfg.is_moe:
-        raise NotImplementedError(f"MoE MLP {_NOT_PORTED}")
+        return moe_forward(p["mlp"], h, cfg, capacity_factor)
     return mlp_forward(p["mlp"], h)
 
 
@@ -210,7 +277,7 @@ def block_forward(p, x, cfg: ModelConfig, ctx: SeqCtx, kind: str):
                                  cfg, ctx, kind)
     x = x + a
     h = rms_norm(x, p["ln2"], cfg.norm_eps)
-    return x + _mlp(p, h, cfg), cache
+    return x + _mlp(p, h, cfg, PREFILL_CAPACITY_FACTOR), cache
 
 
 def block_decode(p, x, cache, cfg: ModelConfig, ctx: SeqCtx, kind: str):
@@ -218,7 +285,7 @@ def block_decode(p, x, cache, cfg: ModelConfig, ctx: SeqCtx, kind: str):
                                 cache, cfg, ctx, kind)
     x = x + a
     h = rms_norm(x, p["ln2"], cfg.norm_eps)
-    return x + _mlp(p, h, cfg), cache
+    return x + _mlp(p, h, cfg, DECODE_CAPACITY_FACTOR), cache
 
 
 # ============================================ Mamba2 (SSD) and RG-LRU parameters

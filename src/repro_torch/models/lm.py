@@ -1,5 +1,5 @@
 """Decoder-only LM assembly (port of `repro/models/lm.py`) for the attention
-families.
+families (dense, MoE and VLM).
 
 The parameter tree keeps the reference's stacked layout: `segments[i]` is a
 tuple with one dict per layer kind of the segment's repeating unit, and

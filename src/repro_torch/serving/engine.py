@@ -35,13 +35,22 @@ drains the copy stream, joins the prefetch worker and drops every device
 reference (live instances' included) before it swaps the state, so the
 card's memory comes back.
 
+Fine-tune variants (`register_variant`, DESIGN.md §17) carry the base's
+fingerprints outside their delta leaves, so the engine's `_tensors` (keyed
+by fingerprint) hands a variant the base's very device tensors and its cold
+load moves only the delta.  Live KV migration (`migrate_out` /
+`migrate_in`, DESIGN.md §16) snapshots a decode's pages with one
+`index_select` per slab and one device→host copy into page-locked memory,
+and restores them with one `index_copy_` per slab after the blobs crossed
+the failure-hardened `ChunkedTransfer`.
+
 Entry points run on the CUDA device unless the caller passes
 ``device="cpu"``; with ``device="cuda"`` and no card the engine raises.
-Not ported yet: `migrate_out` / `migrate_in` and `register_variant`.
 """
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import itertools
 import logging
 import threading
@@ -56,7 +65,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.costmodel import PhaseCosts, paper_l40
-from repro_torch.core.elastic_kv import ElasticKV
+from repro_torch.core.elastic_kv import ElasticKV, KVSnapshot
 from repro_torch.core.faults import FaultInjector
 from repro_torch.core.reuse_store import LoadReport, ReuseStore
 from repro_torch.kernels import ops as kops
@@ -65,7 +74,8 @@ from repro_torch.models import common as cmod
 from repro_torch.models import layers as Lmod
 from repro_torch.models.common import resolve_device, rms_norm
 from repro_torch.models.tensors import (HostTensorStore, ModelSpec, PersistentStore,
-                                        StoreError, TensorRecord, tensor_records,
+                                        StoreError, TensorRecord, VariantSpec,
+                                        flatten_params, tensor_records,
                                         tree_structure, tree_unflatten)
 from repro_torch.obs import NULL_TRACER, BoundedLog
 from repro_torch.stats import EngineFaultStats, snapshot_dict
@@ -686,6 +696,31 @@ class SharedKVSlab:
         self.v_pages = torch.cat([self.v_pages, zeros], dim=1)
 
 
+@dataclass
+class KVMigration:
+    """One decode's portable handoff state (DESIGN.md §16).
+
+    Produced by `Engine.migrate_out`: the request's live KV pages copied
+    device→host into two stacked host tensors (page-locked on CUDA), in
+    logical-block order, so the target never sees the source's pool layout,
+    plus the metadata-only `KVSnapshot` carrying lengths and geometry.
+    `replay` is the snapshot window: the tokens the SOURCE fed to `decode`
+    after the snapshot was taken.  `Engine.migrate_in` re-feeds them on the
+    target, which must reproduce the source's logits bit for bit (same
+    weights, same decode step and table width, attention reads only
+    table-referenced pages).
+    """
+
+    model_id: str
+    snap: KVSnapshot  # metadata-only (pages are None placeholders)
+    k_blob: torch.Tensor  # (L, nblk, T, K, hd) host copy of the K pages
+    v_blob: torch.Tensor
+    replay: list = field(default_factory=list)  # window tokens, in feed order
+
+    def nbytes(self) -> int:
+        return self.k_blob.nbytes + self.v_blob.nbytes
+
+
 class Engine:
     """One worker's inference engine over a Unified Memory Pool."""
 
@@ -742,7 +777,12 @@ class Engine:
         self._slabs: dict[tuple, SharedKVSlab] = {}  # KV geometry -> slab
         self._fused: dict[tuple, tuple] = {}  # group -> cached fused state
         self._instances_of: dict[str, int] = {}  # model_id -> live instances
-        self._live_instances: dict[str, list["Instance"]] = {}
+        self._live_instances: dict[str, list["Instance"]] = {}  # migration registry
+        # live-KV migration ledger (DESIGN.md §16): lifetime counters, like
+        # `crashes` — they survive `crash()` (the events already happened)
+        self.migrated_out = 0
+        self.migrated_in = 0
+        self.migration_bytes = 0  # KV payload bytes shipped out of this engine
         self.last_load: Optional[DataLoadStats] = None
 
     # ------------------------------------------------------------- registry
@@ -771,6 +811,44 @@ class Engine:
                  init_fn: Optional[Callable[[], Any]] = None):
         """Identity-policy shim for the pre-§17 call shape."""
         self.register_model(ModelSpec(model_id), cfg, init_fn)
+
+    def register_variant(self, vspec: VariantSpec,
+                         cfg: Optional[ModelConfig] = None,
+                         init_fn: Optional[Callable[[], Any]] = None):
+        """Register a fine-tune variant of an already-registered base
+        (DESIGN.md §17): leaves outside `vspec.delta_names` carry the
+        BASE's fingerprints, so a load of the variant hits them in whatever
+        tier the base (or a sibling variant) left them — on the device, the
+        base's own tensors — and only the delta leaves move.  Without an
+        explicit `init_fn` the variant's params are the base's with each
+        floating delta leaf perturbed by ``0.02 * normal`` in the leaf's
+        dtype, the noise drawn on the engine's device from a
+        `torch.Generator` there seeded with
+        ``crc32(f"{variant_id}|{leaf}") & 0xFFFF`` (the reference draws it
+        with `jax.random` from the same seed on its device); the perturbed
+        leaf goes back where the base's leaf lives.  Shared leaves are the
+        base's tensors, untouched."""
+        base = self.models[vspec.base_id]
+        spec = vspec.to_model_spec()
+        if init_fn is None:
+            base_init = base.init_fn
+            dev = self.device
+
+            def init_fn(_spec=spec, _base_init=base_init):
+                tree = _base_init()
+                leaves = []
+                for name, leaf in flatten_params(tree):
+                    if _spec.is_delta(name) and (leaf.is_floating_point()
+                                                 or leaf.is_complex()):
+                        seed = zlib.crc32(f"{_spec.model_id}|{name}".encode()) & 0xFFFF
+                        gen = torch.Generator(device=dev).manual_seed(seed)
+                        noise = torch.randn(leaf.shape, dtype=leaf.dtype, device=dev,
+                                            generator=gen)
+                        scale = torch.tensor(0.02, dtype=leaf.dtype, device=dev)
+                        leaf = (leaf.to(dev) + scale * noise).to(leaf.device)
+                    leaves.append(leaf)
+                return tree_unflatten(tree_structure(tree), leaves)
+        self.register_model(spec, cfg if cfg is not None else base.cfg, init_fn)
 
     def records_of(self, model_id: str) -> list[TensorRecord]:
         return self.models[model_id].records
@@ -1303,6 +1381,94 @@ class Engine:
         self._live_instances.setdefault(model_id, []).append(inst)
         return inst
 
+    # ----------------------------------------------- live KV migration (§16)
+    def migrate_out(self, model_id: str, req: str = "seq0") -> KVMigration:
+        """Snapshot one live decode for handoff to another engine.
+
+        Non-destructive: the request keeps decoding here during the snapshot
+        window.  The request's pages are gathered in logical-block order
+        with one `index_select` per slab and copied device→host once, into
+        page-locked memory on CUDA (the d2h half of
+        `PhaseCosts.migrate_time`); the copy has completed on return, so
+        later source steps cannot change the blob.  The caller records every
+        token it feeds the source AFTER this call into ``mig.replay`` and
+        finishes the source instance once the handoff commits.  Whole pages
+        are copied (positions past ``seq_len`` included): attention reads
+        only table-referenced pages and masks by length.
+        """
+        inst = next((i for i in self._live_instances.get(model_id, ())
+                     if i.paged and req in i.kv.block_tables), None)
+        if inst is None:
+            raise ValueError(
+                f"no live paged instance of {model_id!r} holds {req!r}")
+        slab = inst.slab
+        # the sync-free decode loop calls `ensure` only on block boundaries,
+        # so `kv.seq_lens` can lag the authoritative host mirror mid-block
+        b = int(req[3:]) if req.startswith("seq") and req[3:].isdigit() else 0
+        inst.kv.ensure({req: int(inst._host_lens[b])})
+        snap = inst.kv.snapshot(req, reader=lambda off, lbn: slab.page_map[off])
+        idx = self.h2d(np.asarray(snap.pages, np.int64), torch.int64)
+        L, _, T, K, hd = slab.k_pages.shape
+        gathered = torch.empty((2, L, len(snap.pages), T, K, hd),
+                               dtype=slab.k_pages.dtype, device=self.device)
+        torch.index_select(slab.k_pages, 1, idx, out=gathered[0])
+        torch.index_select(slab.v_pages, 1, idx, out=gathered[1])
+        host = torch.empty(gathered.shape, dtype=gathered.dtype,
+                           pin_memory=self.device.type == "cuda")
+        host.copy_(gathered)  # one d2h copy; blocks until it has landed
+        meta = dataclasses.replace(snap, pages=(None,) * snap.num_blocks)
+        mig = KVMigration(model_id=model_id, snap=meta, k_blob=host[0], v_blob=host[1])
+        self.migrated_out += 1
+        self.migration_bytes += mig.nbytes()
+        return mig
+
+    def migrate_in(self, mig: KVMigration, *, max_blocks_per_seq: int = 64,
+                   num_pages: int = 128, attn_mode: str = "kernel",
+                   ) -> tuple["Instance", list[torch.Tensor]]:
+        """Restore a migrated decode on THIS engine and replay its window.
+
+        The model's weights load through the usual tiered path (warm target:
+        device hit), the KV blobs ride the failure-hardened `ChunkedTransfer`
+        (chunk retries, wall deadline — DESIGN.md §15), ElasticKV allocates
+        a fresh block table via `restore`, the pages are mapped (the slab
+        may grow) and land in the shared slab with one `index_copy_` per
+        slab.  The ≤K `mig.replay` window tokens are then re-fed; returns
+        ``(instance, replayed_logits)``, which must equal the source's
+        logits bit for bit when the target's `max_blocks_per_seq` equals
+        the source's (the table width fixes the paged kernel's split plan).
+        """
+        self.load(mig.model_id)
+        inst = self.start_instance(mig.model_id, num_pages=num_pages,
+                                   max_blocks_per_seq=max_blocks_per_seq,
+                                   attn_mode=attn_mode)
+        req = mig.snap.req
+        kname = f"kvmig:{mig.model_id}:{req}:k"
+        vname = f"kvmig:{mig.model_id}:{req}:v"
+        moved = self._xfer.transfer([(kname, mig.k_blob), (vname, mig.v_blob)],
+                                    DataLoadStats())
+        table = inst.kv.restore(req, mig.snap)
+        pages = inst._pages(table)  # may grow the slab: map pages FIRST
+        if len(pages) > inst.max_blocks:
+            raise ValueError(f"snapshot needs {len(pages)} blocks but the "
+                             f"instance caps at {inst.max_blocks}")
+        idx = self.h2d(np.asarray(pages, np.int64), torch.int64)
+        inst.slab.k_pages.index_copy_(1, idx, moved[kname])
+        inst.slab.v_pages.index_copy_(1, idx, moved[vname])
+        # adopt the decode state (B=1 handoff): host mirrors authoritative
+        inst._host_lens = np.asarray([mig.snap.seq_len], np.int64)
+        inst._lengths = self.h2d(inst._host_lens, torch.int32)
+        inst._lengths_stale = False
+        inst._tables_np = np.zeros((1, inst.max_blocks), np.int32)
+        inst._tables_np[0, : len(pages)] = pages
+        inst._nblk = np.asarray([len(pages)], np.int64)
+        inst._tables = self.h2d(inst._tables_np, torch.int32)
+        inst._tables_stale = False
+        inst._step = 1
+        self.migrated_in += 1
+        replayed = [inst.decode(self.h2d(np.asarray([int(t)], np.int32), torch.int32))
+                    for t in mig.replay]
+        return inst, replayed
+
     def decode_many(self, steps: Sequence[tuple["Instance", torch.Tensor]]
                     ) -> list[torch.Tensor]:
         """One interleaved engine step: advance each running instance by one
@@ -1643,8 +1809,6 @@ def _paged_decode_step(params, cfg: ModelConfig, token, tables, lengths,
     layer with `lengths + 1`.  Returns (logits, lengths + 1) — lengths
     advance on device so the caller never syncs.
     """
-    if cfg.is_moe:
-        raise NotImplementedError("MoE decode is not ported yet — see ROADMAP queue 1")
     B = token.shape[0]
     _, P, T, K, hd = k_pages.shape
     pos = lengths  # next position = current per-sequence length
@@ -1672,6 +1836,9 @@ def _paged_decode_step(params, cfg: ModelConfig, token, tables, lengths,
         o = attn_fn(q[:, 0], kp_l, vp_l, tables, new_lens)
         h = h + Lmod._out_proj(o, p["attn"]["wo"])[:, None, :]
         hm = rms_norm(h, p["ln2"], cfg.norm_eps)
-        h = h + Lmod.mlp_forward(p["mlp"], hm)
+        # MoE: the capacity comes from B on the host, so the step stays
+        # sync-free
+        h = h + (Lmod.moe_forward(p["mlp"], hm, cfg, Lmod.DECODE_CAPACITY_FACTOR)
+                 if cfg.is_moe else Lmod.mlp_forward(p["mlp"], hm))
     logits = lm.unembed(params, cfg, h)[:, 0]
     return logits, new_lens

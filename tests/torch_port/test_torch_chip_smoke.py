@@ -123,3 +123,55 @@ def test_fleet_phase_rehearses_on_cpu(monkeypatch):
     cfgs, weights = tiny_models(cs)
     summary = cs.fleet_phase(cfgs, weights, "cpu")
     assert summary["engine_crashes"] == 1 and summary["dropped_requests"] == 0
+
+
+TINY_MOE = dict(num_layers=2, d_model=128, moe_d_ff=64, vocab_size=512, num_heads=8,
+                num_kv_heads=1, head_dim=32, num_experts=16, experts_per_token=4)
+TINY_VLM = dict(num_layers=3, d_model=96, d_ff=192, vocab_size=512, num_heads=7,
+                num_kv_heads=1, head_dim=32, vision_stub_patches=8,
+                mrope_sections=(8, 4, 4))
+
+
+def test_families_phase_rehearses_on_cpu(monkeypatch):
+    """The [families] phase on the CPU: a MoE and a VLM model of about the
+    full-width size ratio through the Gateway, the seeded trace's warm, full
+    h2d and partial-reuse starts, every load's bytes, the first requests
+    against the plain attention (the MoE one with its kernel path's expert
+    choices) and each model's launches."""
+    from collections import Counter
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.trace import SimModel
+    from repro_torch.serverless import poisson_trace
+
+    cs = load_chip_smoke()
+    monkeypatch.setattr(cs, "FAMILY_PROMPT", 24)
+    monkeypatch.setattr(cs, "SERVERLESS_GEN", 4)
+    count_plain_calls(monkeypatch)
+    cfgs = {"qwen3-moe-30b-a3b": dataclasses.replace(get_config("qwen3-moe-30b-a3b"),
+                                                     **TINY_MOE),
+            "qwen2-vl-7b": dataclasses.replace(get_config("qwen2-vl-7b"), **TINY_VLM)}
+    weights = {m: cs.draw_weights(c, i, "cpu") for i, (m, c) in enumerate(cfgs.items())}
+    per_model = cs.families_phase(cfgs, weights, "cpu")
+    trace = poisson_trace(models=[SimModel(m, 1e6, 1) for m in cfgs], **cs.FAMILY_TRACE)
+    n = Counter(r.model_id for r in trace)
+    assert per_model == {m: {"paged_attention": c.num_layers * 4 * n[m],
+                             "flash_attention": c.num_layers * n[m]}
+                         for m, c in cfgs.items()}
+
+
+def test_dedup_and_migration_phases_rehearse_on_cpu(monkeypatch):
+    """[dedup] and [migration] on the CPU over the deepseek-7b stand-in:
+    delta-only variant loads whose shared leaves are the base's tensors, the
+    small pool's evictions, and a bit-identical migrated replay."""
+    cs = load_chip_smoke()
+    monkeypatch.setattr(cs, "SERVERLESS_PROMPT", 40)
+    monkeypatch.setattr(cs, "KV_ROOM", 3 << 19)  # one KV region of the stand-in
+    _, weights = tiny_models(cs)
+    from repro_torch.configs import get_config
+
+    cfg = dataclasses.replace(get_config("deepseek-7b"), **TINY_DEEPSEEK)
+    out = cs.dedup_phase(cfg, weights["deepseek-7b"], "cpu")
+    assert out["delta_bytes"] == 2 * 4 * 256 * 256 * 2  # stacked wq and wo, bf16
+    mig = cs.migration_phase(cfg, weights["deepseek-7b"], "cpu")
+    assert mig["bytes"] == 2 * 4 * 3 * 16 * 8 * 32 * 2  # K + V, 3 pages of 16 tokens

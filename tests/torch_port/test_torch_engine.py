@@ -17,20 +17,18 @@ import pytest
 pytest.importorskip("torch")
 pytest.importorskip("jax")
 
-import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 import torch  # noqa: E402
 
 from repro.configs import get_config as ref_config  # noqa: E402
-from repro.models import build_model as ref_build  # noqa: E402
-from repro.serving.engine import Engine as RefEngine  # noqa: E402
 from repro_torch.configs import get_config as port_config  # noqa: E402
 from repro_torch.models import build_model as port_build  # noqa: E402
-from repro_torch.models.convert import params_from_numpy  # noqa: E402
 from repro_torch.serving.engine import ChunkedTransfer, DataLoadStats  # noqa: E402
 from repro_torch.serving.engine import Engine as PortEngine  # noqa: E402
 
-from torch_port_helpers import max_err, ref_named_numpy  # noqa: E402
+from torch_port_helpers import load_ledger as ledger  # noqa: E402
+from torch_port_helpers import load_report as report  # noqa: E402
+from torch_port_helpers import max_err, paired_engines  # noqa: E402
 
 LOGIT_TOL = 1e-4  # fp32: the same math summed in another order
 
@@ -44,25 +42,8 @@ def cfgs(layers=2, dtype="float32", name="llama3.2-1b"):
 def engines(models, cap=64 << 20, **kw):
     """A reference and a port engine with the same models registered over
     the same weights.  `models`: {model_id: (ref_cfg, port_cfg, seed)}."""
-    ref, port = RefEngine(cap, **kw), PortEngine(cap, device="cpu", **kw)
-    for mid, (rc, pc, seed) in models.items():
-        params = ref_build(rc).init(jax.random.PRNGKey(seed))
-        named = ref_named_numpy(params)
-        ref.register(mid, rc, init_fn=lambda p=params: p)
-        port.register(mid, pc, init_fn=lambda n=named, c=pc: params_from_numpy(n, c, device="cpu"))
+    ref, port, _ = paired_engines(models, cap, **kw)
     return ref, port
-
-
-def ledger(eng):
-    """Everything the load path accounts, timings aside."""
-    s = {k: v for k, v in eng.last_load.as_dict().items() if "seconds" not in k}
-    return (s, eng.host_store.snapshot().as_dict(), eng.persistent_store.nbytes(),
-            sorted(eng.store.tensor_map), sorted(eng._tensors))
-
-
-def report(rep):
-    return (rep.bytes_total, rep.bytes_transferred, rep.bytes_from_host,
-            rep.bytes_from_store, rep.reuse_fraction, rep.load_seconds)
 
 
 SCENARIOS = {

@@ -17,7 +17,7 @@ COPIED = [
     "core/regions.py", "core/allocator.py", "core/costmodel.py",
     "core/reuse_store.py", "core/elastic_kv.py", "core/faults.py",
     "core/trace.py", "core/scheduler.py", "core/hostcache.py",
-    "core/engine_api.py", "core/cluster.py", "core/__init__.py",
+    "core/engine_api.py", "core/cluster.py", "core/__init__.py", "core/mcmdkp.py",
     "serverless/workload.py", "serverless/lifecycle.py", "serverless/__init__.py",
     "configs/__init__.py", "models/__init__.py",
 ] + sorted(f"configs/{p.name}" for p in (REF / "configs").glob("*.py")

@@ -34,3 +34,46 @@ def to_f32(x) -> np.ndarray:
 
 def max_err(a, b) -> float:
     return float(np.max(np.abs(to_f32(a) - to_f32(b))))
+
+
+def close_to(port, ref, dtype) -> bool:
+    """Within tests/test_kernels.py's tolerance: absolute for fp32, relative
+    to the reference's scale (at least 1) for bf16."""
+    scale = max(1.0, float(np.abs(to_f32(ref)).max())) if dtype == "bfloat16" else 1.0
+    return max_err(port, ref) <= TOL[dtype] * scale
+
+
+def paired_engines(models, cap=64 << 20, ref_cls=None, **kw):
+    """A reference and a port engine (CPU) with the same models registered
+    over the same weights, drawn once by the reference.  `models`:
+    {model_id: (ref_cfg, port_cfg, seed)}.  Returns (ref, port, weights)
+    with weights {model_id: reference param tree}."""
+    import jax
+
+    from repro.models import build_model as ref_build
+    from repro.serving.engine import Engine as RefEngine
+    from repro_torch.models.convert import params_from_numpy
+    from repro_torch.serving.engine import Engine as PortEngine
+
+    ref = (ref_cls or RefEngine)(cap, **kw)
+    port = PortEngine(cap, device="cpu", **kw)
+    weights = {}
+    for mid, (rc, pc, seed) in models.items():
+        params = ref_build(rc).init(jax.random.PRNGKey(seed))
+        named = ref_named_numpy(params)
+        ref.register(mid, rc, init_fn=lambda p=params: p)
+        port.register(mid, pc, init_fn=lambda n=named, c=pc: params_from_numpy(n, c, device="cpu"))
+        weights[mid] = params
+    return ref, port, weights
+
+
+def load_ledger(eng):
+    """Everything the load path accounts, timings aside."""
+    s = {k: v for k, v in eng.last_load.as_dict().items() if "seconds" not in k}
+    return (s, eng.host_store.snapshot().as_dict(), eng.persistent_store.nbytes(),
+            sorted(eng.store.tensor_map), sorted(eng._tensors))
+
+
+def load_report(rep):
+    return (rep.bytes_total, rep.bytes_transferred, rep.bytes_from_host,
+            rep.bytes_from_store, rep.reuse_fraction, rep.load_seconds)
