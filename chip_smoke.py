@@ -15,8 +15,8 @@ run outside a checkout of the repository):
    bf16; paged decode: lengths 0 and 1, at and +-1 around the split-KV
    boundaries, full tables, a long context, G of 1 to 16 (7 included),
    head dim 64 / 128; prefill: S of 1 to 512 around the 64-row tiles,
-   sliding windows, non-causal, head dim 32 / 64 / 128, G of 1 / 4 / 7 /
-   8), with the kernel's, the plain version's and a PyTorch call's time
+   sliding windows, non-causal, head dim 32 / 64 / 128 / 256, G of 1 / 4 /
+   7 / 8 / 16), with the kernel's, the plain version's and a PyTorch call's time
    beside the bound, at the shapes of every model the script serves and
    at one long shape each (`[timing]` lines: a 4000-token conversation at
    batch 1, a 4096-token prompt);
@@ -59,7 +59,15 @@ run outside a checkout of the repository):
    (MoE, full width, 12 of its 48 layers) and qwen2-vl-7b (M-RoPE and
    vision patches, full width and depth), 512-token prompts, a seeded
    Poisson trace of 8 requests;
-9. `[launcher]`: ``python -m repro_torch.launch.serve --trace poisson
+9. `[state-families]`: the `Gateway` over the families the Engine serves
+   through its non-paged fallback, at full width: mamba2-2.7b (SSD),
+   recurrentgemma-9b (RG-LRU + local MQA at head dim 256), whisper-tiny
+   (encoder-decoder, 1500 encoder frames) and mixtral-8x7b (MoE + SWA
+   ring; 6 of its 32 layers), 512-token prompts, a seeded Poisson trace of
+   10 requests; then one prompt longer than the window per SWA model
+   (recurrentgemma-9b 2200, mixtral 4200) straight through `Engine`, over a
+   window-sized ring, each held against the plain attention path;
+10. `[launcher]`: ``python -m repro_torch.launch.serve --trace poisson
    --n-engines 2 --chaos`` at the launcher's own smoke sizes, on the card.
 
 Each phase frees the page-locked weights it drew before the next draws its
@@ -72,6 +80,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import functools
 import gc
 import json
 import math
@@ -310,6 +319,27 @@ def check_kernels() -> dict:
         # the prefills of [families]: B 1, S 512, hd 128
         ("qwen3-moe-30b-a3b", "bfloat16", 1, FAMILY_PROMPT, 32, 4, 128, True, 0),
         ("qwen2-vl-7b", "bfloat16", 1, FAMILY_PROMPT, 28, 4, 128, True, 0),
+        # hd 256 (recurrentgemma-9b's local MQA): G 1 / 8 / 16, S around the
+        # 64-row tiles, windows across several tiles, non-causal
+        *[("", dt, 1, S, 16, 1, 256, True, 0)
+          for dt in ("bfloat16", "float32") for S in (1, 63, 64, 65, 300)],
+        ("", "bfloat16", 2, 129, 16, 16, 256, True, 0),
+        ("", "bfloat16", 1, 300, 16, 2, 256, True, 100),
+        ("", "bfloat16", 1, 330, 16, 1, 256, True, 64),
+        ("", "float32", 1, 330, 16, 2, 256, True, 64),
+        ("", "bfloat16", 1, 200, 16, 1, 256, False, 0),
+        ("", "float32", 1, 200, 16, 16, 256, False, 80),
+        # the prefills of [state-families] (B 1): recurrentgemma-9b's local
+        # attention (MQA G 16, hd 256, window 2048) at the Gateway's 512 and
+        # the long probe's 2200; mixtral (window 4096) at 512 and at 4200;
+        # whisper-tiny's encoder (S 1500, non-causal)
+        ("recurrentgemma-9b", "bfloat16", 1, STATE_PROMPT, 16, 1, 256, True, 2048),
+        ("recurrentgemma-9b long", "bfloat16", 1, STATE_LONG["recurrentgemma-9b"],
+         16, 1, 256, True, 2048),
+        ("mixtral-8x7b", "bfloat16", 1, STATE_PROMPT, 32, 8, 128, True, 4096),
+        ("mixtral-8x7b long", "bfloat16", 1, STATE_LONG["mixtral-8x7b"], 32, 8, 128,
+         True, 4096),
+        ("whisper-tiny", "bfloat16", 1, 1500, 6, 6, 64, False, 0),
     ]
     for label, dt, B, S, H, K, hd, causal, window in flash_cases:
         dtype = getattr(torch, dt)
@@ -324,15 +354,22 @@ def check_kernels() -> dict:
         if not label:
             continue
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        masked = 0 < window < S  # a window no shorter than S masks nothing
+        if masked:  # SDPA has no window: an explicit mask of the visible pairs
+            qp, kp = torch.arange(S, device=dev)[:, None], torch.arange(S, device=dev)[None]
+            mask = (kp > qp - window) & ((kp <= qp) if causal else True)
+            sdpa = functools.partial(F.scaled_dot_product_attention, qt, kt, vt,
+                                     attn_mask=mask, enable_gqa=True)
+        else:
+            sdpa = functools.partial(F.scaled_dot_product_attention, qt, kt, vt,
+                                     is_causal=causal, enable_gqa=True)
         row = _timing_row(
             "flash_attention", f"{label} {desc}", dt,
-            lambda: ops.flash_attention(q, k, v, causal=True),
-            lambda: flash_attention_ref(q, k, v, causal=True),
-            lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
-                                                   enable_gqa=True),
-            "sdpa", 2 * (B * S * H * hd + B * S * K * hd) * q.element_size(),
-            4 * B * H * hd * (S * (S + 1) // 2),  # causal: visible pairs only
-            err)
+            lambda: ops.flash_attention(q, k, v, causal=causal, window=window),
+            lambda: flash_attention_ref(q, k, v, causal=causal, window=window),
+            sdpa, "sdpa" + (" (explicit window mask)" if masked else ""),
+            2 * (B * S * H * hd + B * S * K * hd) * q.element_size(),
+            4 * B * H * hd * visible_pairs(S, causal, window), err)
         del ref
         if label != "long":
             rows[("flash_attention", label)] = {
@@ -347,7 +384,24 @@ SHAPE_NOTES = {"main": "llama3.2-1b, main path (launches: main path)",
                "deepseek-7b": "deepseek-7b, [serverless] (launches: its requests there)",
                "qwen3-moe-30b-a3b": "qwen3-moe-30b-a3b (12 of 48 layers), [families] "
                                     "(launches: its requests there)",
-               "qwen2-vl-7b": "qwen2-vl-7b, [families] (launches: its requests there)"}
+               "qwen2-vl-7b": "qwen2-vl-7b, [families] (launches: its requests there)",
+               "recurrentgemma-9b": "recurrentgemma-9b, [state-families] (launches: its "
+                                    "requests there)",
+               "recurrentgemma-9b long": "recurrentgemma-9b, [state-families] 2200-token "
+                                         "probe (launches: the probe's kernel path)",
+               "mixtral-8x7b": "mixtral-8x7b (6 of 32 layers), [state-families] "
+                               "(launches: its requests there)",
+               "mixtral-8x7b long": "mixtral-8x7b (6 of 32 layers), [state-families] "
+                                    "4200-token probe (launches: the probe's kernel path)",
+               "whisper-tiny": "whisper-tiny encoder, [state-families] (launches: its "
+                               "requests there, encoder and decoder self-attention)"}
+
+
+def visible_pairs(S: int, causal: bool, window: int) -> int:
+    """(query, key) pairs attention computes: causal and windowed ones only."""
+    if not causal:
+        return sum(S - max(0, q - window + 1) for q in range(S)) if window else S * S
+    return sum(min(q + 1, window) if window else q + 1 for q in range(S))
 
 
 def _bound(nbytes: int, flops: int, dtype: str) -> tuple[float, str]:
@@ -525,25 +579,26 @@ def _device_ms(prof, reps: int) -> tuple[dict[str, float], int]:
     return by_name, len(kernels)
 
 
-def profile_decode(eng, cfg, batch, steps: int = 8):
-    """Where the time goes: torch.profiler over a warm prefill and `steps`
-    decode steps of a fresh instance (outside the counted main path)."""
+def profile_steps(inst, prefill, steps: int, tag: str, what: str, decode_what: str):
+    """Where the time goes: torch.profiler over `prefill()` (which returns
+    the prompt's logits) and then `steps` decode steps of `inst`, outside
+    any counted path; logs walls, device busy time, the idle share, kernels
+    a step, K2's and K1's share and the largest kernels."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    inst = eng.start_instance(cfg.name, max_blocks_per_seq=64, num_pages=256)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        tok = inst.prefill(batch, lengths=PROMPT_LENS).argmax(-1).to(torch.int32)
+        tok = prefill().argmax(-1).to(torch.int32)
         torch.cuda.synchronize()
         prefill_ms = (time.perf_counter() - t0) * 1e3
-    by_name, _ = _device_ms(prof, 1)
+    by_name, n_kernels = _device_ms(prof, 1)
     if by_name:
         busy_ms = sum(by_name.values())
         k2_ms = sum(t for n, t in by_name.items() if "flash_bf16_kernel" in n)
-        log(f"[profile] prefill B={len(PROMPT_LENS)} S={max(PROMPT_LENS)} (profiled): wall "
-            f"{prefill_ms:.3f} ms, device busy {busy_ms:.3f} ms, K2 {k2_ms:.3f} ms")
+        log(f"[{tag}] prefill {what} (profiled): wall {prefill_ms:.3f} ms, device busy "
+            f"{busy_ms:.3f} ms, {n_kernels} kernels, K2 {k2_ms:.3f} ms")
     tok = inst.decode(tok).argmax(-1).to(torch.int32)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -552,19 +607,42 @@ def profile_decode(eng, cfg, batch, steps: int = 8):
             tok = inst.decode(tok).argmax(-1).to(torch.int32)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / steps
-    inst.finish()
     by_name, n_kernels = _device_ms(prof, steps)
     if not by_name:
-        log("[profile] decode: device time not measured (the profiler saw no CUDA events)")
+        log(f"[{tag}] decode: device time not measured (the profiler saw no CUDA events)")
         return
     busy_ms = sum(by_name.values())
     k1_ms = sum(t for n, t in by_name.items()
                 if "paged_split_kernel" in n or "paged_combine_kernel" in n)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
-    log(f"[profile] decode B={len(PROMPT_LENS)} (profiled): wall {wall_ms:.3f} ms/step, "
+    log(f"[{tag}] decode {decode_what} (profiled): wall {wall_ms:.3f} ms/step, "
         f"device busy {busy_ms:.3f} ms/step, idle share {1 - busy_ms / wall_ms:.3f}, "
         f"{n_kernels / steps:.0f} kernels/step, K1 (split + combine) {k1_ms:.3f} ms/step; top: "
         + "; ".join(f"{n[:60]} {t:.3f} ms" for n, t in top))
+
+
+def profile_decode(eng, cfg, batch, steps: int = 8):
+    """The main path's warm prefill and `steps` decode steps of a fresh
+    instance under the profiler (`profile_steps`)."""
+    inst = eng.start_instance(cfg.name, max_blocks_per_seq=64, num_pages=256)
+    profile_steps(inst, lambda: inst.prefill(batch, lengths=PROMPT_LENS), steps, "profile",
+                  f"B={len(PROMPT_LENS)} S={max(PROMPT_LENS)}", f"B={len(PROMPT_LENS)}")
+    inst.finish()
+
+
+def profile_states(eng, names, steps: int = 8):
+    """Each non-paged model's prefill of the phase's prompt and `steps`
+    decode steps at B 1 under the profiler (`profile_steps`)."""
+    from repro_torch.serverless.gateway import make_prefill_batch
+
+    for m in names:
+        eng.load(m)  # its instance's finish releases it
+        inst = eng.start_instance(m)
+        batch = make_prefill_batch(eng, m, STATE_PROMPT, 0)
+        profile_steps(inst, lambda: inst.prefill(batch), steps, "state-families",
+                      f"{m} B=1 S={STATE_PROMPT}", f"{m} B=1")
+        inst.finish()
+
 
 # ------------------------------------------------------------------ phase 4
 SERVERLESS_MODELS = ("llama3.2-1b", "deepseek-7b")
@@ -588,6 +666,20 @@ FAMILY_MODELS = ("qwen3-moe-30b-a3b", "qwen2-vl-7b")
 FAMILY_MOE_LAYERS = 12
 FAMILY_TRACE = dict(n_requests=8, seed=25, mean_interarrival=20.0)
 FAMILY_PROMPT = 512
+# [state-families]: the families of the Engine's non-paged fallback at full
+# width, mixtral-8x7b cut to 6 of its 32 layers (17.94 of 93.41 GB; the
+# whole model does not fit one card); the pool holds mixtral and half of
+# recurrentgemma-9b, so the two never co-reside.  Seed 39 of the 20 s
+# Poisson trace over this model order (Zipf popularity: mixtral first) gives
+# under the 10 s keep-alive full h2d cold starts of all four models,
+# partial-reuse cold starts and a warm start, and no arrival finds mixtral
+# or recurrentgemma warm while the other is requested.  Then one prompt per
+# SWA model longer than its window.
+STATE_MODELS = ("mixtral-8x7b", "recurrentgemma-9b", "mamba2-2.7b", "whisper-tiny")
+STATE_MIXTRAL_LAYERS = 6
+STATE_TRACE = dict(n_requests=10, seed=39, mean_interarrival=20.0)
+STATE_PROMPT = 512
+STATE_LONG = {"recurrentgemma-9b": 2200, "mixtral-8x7b": 4200}
 # [dedup]: deepseek-7b's fine-tune variants, each differing from the base in
 # layer-stacked wq and wo (2,013,265,920 of 13,821,231,104 B)
 DEDUP_VARIANTS = 3
@@ -678,6 +770,10 @@ def device_bytes(eng) -> int:
     for insts in eng._live_instances.values():
         for inst in insts:
             tensors += [t for t in (inst._tables, inst._lengths) if t is not None]
+            if inst._cache is not None:
+                # a non-paged instance's state caches and rings: outside the
+                # pool's ledger (ElasticKV allocates nothing for them)
+                tree_map(tensors.append, inst._cache)
     storages = {t.untyped_storage().data_ptr(): t.untyped_storage().nbytes()
                 for t in tensors if t.device.type == "cuda"}
     return sum(storages.values())
@@ -725,7 +821,8 @@ def recording_engine():
 
             def first_prefill(batch, **k):
                 out = type(ref()).prefill(ref(), batch, **k)
-                rec.update(batch=batch, prefill=out.detach().clone())
+                rec.update(batch=batch, prefill=out.detach().clone(),
+                           ring=ring_slots(ref()))
                 return out
 
             def first_decode(tok):
@@ -738,6 +835,33 @@ def recording_engine():
             return inst
 
     return RecordingEngine
+
+
+def ring_slots(inst):
+    """Slots of a non-paged instance's attention cache (its SWA ring or the
+    decoder's self-attention cache); None for a paged instance."""
+    cache = inst._cache
+    if cache is None:
+        return None
+    if isinstance(cache, dict):  # encoder-decoder
+        return int(cache["self_k"].shape[2])
+    rings = {int(unit["k"].shape[2]) for seg in cache for unit in seg if "k" in unit}
+    return min(rings) if rings else None
+
+
+def kernel_launches(cfg, requests: int, gen: int) -> dict:
+    """Launches each kernel makes serving `requests` requests of `gen`
+    tokens: K2 once per attention layer per prefill (the encoder's layers
+    too), K1 once per layer per decode step on the paged path only (the
+    non-paged fallback decodes with the plain dense attention, as the
+    reference does)."""
+    from repro_torch.serving.engine import _is_paged_family
+
+    flash = sum(k in ("attn", "swa") for k in cfg.pattern)
+    if cfg.family == "audio":
+        flash += cfg.encoder_layers
+    paged = cfg.num_layers * gen if _is_paged_family(cfg) else 0
+    return {"paged_attention": paged * requests, "flash_attention": flash * requests}
 
 
 @contextlib.contextmanager
@@ -852,10 +976,12 @@ def model_sizes(cfgs: dict) -> dict:
 
 
 def serverless_phase(cfgs: dict, weights: dict, device="cuda", *, tag="serverless",
-                     trace_kw=None, prompt=None) -> dict:
+                     trace_kw=None, prompt=None, pool=None, probe=None) -> dict:
     """The single-engine `Gateway` over `cfgs` (`[serverless]`, and with
-    `tag`, `trace_kw` and `prompt` the `[families]` phase); returns the
-    launch counts of each model's requests, as the counters measured them."""
+    `tag`, `trace_kw`, `prompt` and `pool` the `[families]` and
+    `[state-families]` phases; `probe(eng)` runs on the engine before its
+    crash and returns more launch counts); returns the launch counts of each
+    model's requests, as the counters measured them."""
     import torch
 
     from repro_torch.core.trace import SimModel
@@ -868,7 +994,7 @@ def serverless_phase(cfgs: dict, weights: dict, device="cuda", *, tag="serverles
     dev = torch.device(device)
     names = list(cfgs)
     sizes = model_sizes(cfgs)
-    pool = max(sizes.values()) + min(sizes.values()) // 2  # never both models
+    pool = pool or max(sizes.values()) + min(sizes.values()) // 2  # never both models
     eng = recording_engine()(pool, device=dev, engine_id=tag)
     for m in names:
         eng.register(m, cfgs[m], init_fn=lambda w=weights[m]: w)
@@ -897,20 +1023,25 @@ def serverless_phase(cfgs: dict, weights: dict, device="cuda", *, tag="serverles
                                     if r.cold and 0 < rep.reuse_fraction < 1]}
     log(f"[{tag}] starts: {kinds}; replay {replay_s:.3f} s")
     assert all(kinds.values()), kinds
-    # every layer runs K2 once per prefill and K1 once per decode step
-    expected = {m: {"paged_attention": cfgs[m].num_layers * SERVERLESS_GEN * n,
-                    "flash_attention": cfgs[m].num_layers * n}
-                for m in names for n in [sum(r.model_id == m for r in recs)]}
+    expected = {m: kernel_launches(cfgs[m], sum(r.model_id == m for r in recs),
+                                   SERVERLESS_GEN) for m in names}
     log(f"[{tag}] launches {json.dumps(counts)}; by model {json.dumps(per_model)} "
         f"(expected {json.dumps(expected)})")
     if dev.type == "cuda":
         assert per_model == expected, (per_model, expected)
         for k in counts:
             assert counts[k] == sum(c[k] for c in per_model.values()), (counts, per_model)
+    rings = {m: eng.first[m]["ring"] for m in names if eng.first[m]["ring"] is not None}
+    if rings:
+        log(f"[{tag}] decode cache slots after a {prompt}-token prompt (the Engine's "
+            f"cache_cap, round_up(S, {eng.block_tokens})): {json.dumps(rings)}")
     log(f"[{tag}] summary {json.dumps(sink.summary())}")
     _print_ttft_breakdown(recs)
     decode_floors(tag, cfgs, recs)
+    gw._expire(math.inf)  # the keep-alives lapse: the hold loads each model in turn
     hold_first_tokens(eng, names, tag)
+    if probe is not None:
+        per_model.update(probe(eng))
     eng.crash()
     after = allocated(dev)
     log(f"[{tag}] crash: device memory {after} B allocated, {base} B before the first "
@@ -951,6 +1082,147 @@ def families_phase(cfgs: dict, weights: dict, device="cuda") -> dict:
     with the families' trace and prompt)."""
     return serverless_phase(cfgs, weights, device, tag="families", trace_kw=FAMILY_TRACE,
                             prompt=FAMILY_PROMPT)
+
+
+def state_configs() -> dict:
+    """The non-paged families at full width, mixtral-8x7b with 6 of its 32
+    layers, in the trace's model order."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    cfgs = {m: get_config(m) for m in STATE_MODELS}
+    cfgs["mixtral-8x7b"] = dataclasses.replace(cfgs["mixtral-8x7b"],
+                                               num_layers=STATE_MIXTRAL_LAYERS)
+    return cfgs
+
+
+def long_prompt_probe(eng, m: str, S: int, steps: int = SERVERLESS_GEN) -> dict:
+    """One prompt of S tokens (longer than the model's window) straight
+    through `Engine` at B 1, then `steps` greedy tokens: the prefill's K2
+    launches counted, the decode sync-free over a window-sized ring; every
+    logit row held against the plain attention path fed the same tokens
+    (a MoE model's plain run takes the kernel path's expert choices).
+    Returns the kernel path's launch counts."""
+    import torch
+
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import flash_attention_ref
+    from repro_torch.models import build_model
+    from repro_torch.serverless.gateway import greedy, settle, sync_free
+
+    cfg = eng.models[m].cfg
+    batch = build_model(cfg).make_batch(torch.Generator().manual_seed(S),
+                                        ShapeConfig("long", S, 1, "prefill"),
+                                        device=eng.device)
+
+    def run(plain, fed=None):
+        eng.load(m)  # its instance's finish releases it
+        inst = eng.start_instance(m)
+        kernel = ops.flash_attention
+        if plain:
+            ops.flash_attention = flash_attention_ref
+        try:
+            t0 = time.perf_counter()
+            outs = [inst.prefill(batch)]
+            tok = settle(greedy(outs[0]))
+            prefill_s = time.perf_counter() - t0
+        finally:
+            ops.flash_attention = kernel
+        fed = [] if fed is None else fed
+        t0 = time.perf_counter()
+        with sync_free(eng.device):
+            for i in range(steps):
+                if plain:  # the kernel path's tokens
+                    tok = fed[i]
+                else:
+                    fed.append(tok)
+                outs.append(inst.decode(tok))
+                tok = greedy(outs[-1])
+        settle(tok)
+        decode_s = time.perf_counter() - t0
+        ring = ring_slots(inst)
+        inst.finish()
+        return outs, fed, ring, prefill_s, decode_s
+
+    route = []
+    record = router_choices(record=route) if cfg.is_moe else contextlib.nullcontext()
+    ops.reset_launch_counts()
+    with record:
+        outs, fed, ring, prefill_s, decode_s = run(False)
+    counts = ops.launch_counts()
+    replay = router_choices(replay=route) if cfg.is_moe else contextlib.nullcontext()
+    with replay:
+        plain, _, _, _, _ = run(True, fed)
+    worst = max(rel_err(a, b) for a, b in zip(outs, plain))
+    window = cfg.sliding_window
+    log(f"[state-families] {m} long probe: prompt {S} > window {window}, decode over a "
+        f"{ring}-slot ring; prefill {prefill_s * 1e3:.3f} ms, decode "
+        f"{decode_s / steps * 1e3:.3f} ms/token (B 1, sync-free); launches "
+        f"{json.dumps(counts)}; {len(outs)} logit rows vs the plain attention path: "
+        f"max |diff| / scale {worst:.3e} (tol {TOL['bfloat16']:g})")
+    assert ring == min(window, -(-S // eng.block_tokens) * eng.block_tokens) == window
+    assert worst <= TOL["bfloat16"], (m, worst)
+    want = kernel_launches(cfg, 1, steps)
+    if eng.device.type == "cuda":
+        assert counts == want, (counts, want)
+    return counts
+
+
+def recurrence_timing(cfgs: dict):
+    """Device time of the plain-PyTorch recurrences the prefill runs where
+    the reference has no kernel either: the RG-LRU linear scan
+    (recurrentgemma-9b, B 1, width 4096, fp32) and the chunked SSD scan
+    (mamba2-2.7b, B 1, 80 heads of 64, state 128, chunk 256), per layer and
+    per prefill of the phase's prompt."""
+    import torch
+
+    from repro_torch.models import layers
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    rg, mb = cfgs["recurrentgemma-9b"], cfgs["mamba2-2.7b"]
+    n_rg = sum(k == "rglru" for k in rg.pattern)
+    for S in (STATE_PROMPT, STATE_LONG["recurrentgemma-9b"]):
+        a = torch.rand((1, S, rg.lru_width), generator=gen, device="cuda") * 0.1 + 0.9
+        b = torch.randn((1, S, rg.lru_width), generator=gen, device="cuda")
+        # ~110-150 launches a call: few iterations, so the device spin ahead
+        # of the timed window outlasts their enqueue
+        ms = cuda_time_ms(lambda: layers.linear_scan(a, b), iters=5)
+        log(f"[timing] rglru linear_scan B1 S{S} W{rg.lru_width} fp32: {ms:.4f} ms a layer, "
+            f"{ms * n_rg:.3f} ms for the {n_rg} RG-LRU layers of a prefill")
+    _, H, N, _ = layers._ssd_dims(mb)
+    S, P = STATE_PROMPT, mb.ssm_head_dim
+    x = torch.randn((1, S, H, P), generator=gen, device="cuda").to(mb.torch_dtype)
+    A = -torch.rand((1, S, H), generator=gen, device="cuda") * 0.1
+    Bm = torch.randn((1, S, N), generator=gen, device="cuda").to(mb.torch_dtype)
+    Cm = torch.randn((1, S, N), generator=gen, device="cuda").to(mb.torch_dtype)
+    ms = cuda_time_ms(lambda: layers.ssd_chunked(x, A, Bm, Cm, mb.ssm_chunk), iters=5)
+    log(f"[timing] ssd_chunked B1 S{S} H{H} P{P} N{N} chunk {mb.ssm_chunk}: {ms:.4f} ms a "
+        f"layer, {ms * mb.num_layers:.3f} ms for the {mb.num_layers} SSD layers of a prefill")
+
+
+def state_families_phase(cfgs: dict, weights: dict, device="cuda") -> dict:
+    """`[state-families]`: the `Gateway` over the non-paged families, then a
+    long-prompt probe per SWA model on the same engine."""
+    from repro_torch.configs import get_config
+
+    sizes = model_sizes(cfgs)
+    whole = model_sizes({"mixtral-8x7b": get_config("mixtral-8x7b")})["mixtral-8x7b"]
+    log(f"[state-families] mixtral-8x7b cut to {cfgs['mixtral-8x7b'].num_layers} of "
+        f"{get_config('mixtral-8x7b').num_layers} layers: {sizes['mixtral-8x7b']} of "
+        f"{whole} B (widths, 8 experts top-2 and the 4096 window kept)")
+    pool = sizes["mixtral-8x7b"] + sizes["recurrentgemma-9b"] // 2
+
+    def probes(eng):
+        counts = {f"{m} long": long_prompt_probe(eng, m, S) for m, S in STATE_LONG.items()}
+        if eng.device.type == "cuda":
+            profile_states(eng, list(cfgs))
+        return counts
+
+    return serverless_phase(cfgs, weights, device, tag="state-families",
+                            trace_kw=STATE_TRACE, prompt=STATE_PROMPT, pool=pool,
+                            probe=probes)
 
 
 def host_tree(eng, m):
@@ -1329,6 +1601,17 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     launches.update(families_phase(fcfgs, weights))
     log(f"[phase] families {time.perf_counter() - t0:.1f} s; {host_memory()}")
+    del weights
+    release_memory()
+    t0 = time.perf_counter()
+    scfgs = state_configs()
+    weights = {m: draw_weights(cfg, 20 + seed) for seed, (m, cfg) in enumerate(scfgs.items())}
+    log(f"[phase] state-family weights drawn {time.perf_counter() - t0:.1f} s; "
+        f"{host_memory()}")
+    t0 = time.perf_counter()
+    launches.update(state_families_phase(scfgs, weights))
+    recurrence_timing(scfgs)
+    log(f"[phase] state-families {time.perf_counter() - t0:.1f} s; {host_memory()}")
     del weights
     release_memory()
     t0 = time.perf_counter()

@@ -23,10 +23,14 @@
 // both operands read from shared memory through descriptors; P.V runs as
 // wgmma m64nHDk16 with P rounded to bf16 in registers as the A operand --
 // the same rounding as the plain version's `p.to(q.dtype)` -- and V as the
-// MN-major B operand, so no tile is transposed.  Accumulators are float32.
+// MN-major B operand, so no tile is transposed; at hd 256 P.V runs as two
+// m64n128k16 halves over the two halves of V's columns (one wgmma's
+// accumulator is the same 128 float registers a thread either way).
+// Accumulators are float32.
 // Tiles sit in shared memory in the layout the descriptors name: rows of
 // 128 bytes (64 bytes for hd 32) with their 16-byte chunks XOR-swizzled by
-// row, hd 128 as two 64-column blocks.  K/V tiles of 64 keys stream
+// row, hd 128 / 256 as two / four 64-column blocks.  At hd 256 the Q tile
+// and the 2-stage K/V ring take 161 KB of dynamic shared memory.  K/V tiles of 64 keys stream
 // through a 2-stage ring filled by cp.async 16-byte copies (rows past S
 // read as zeros), so the next tile's copies are in flight while the
 // current one is computed; a proxy fence makes the copies visible to the
@@ -42,7 +46,8 @@
 // float32, `flash_f32_kernel`: products on the float32 CUDA cores (TF32 or
 // bf16 products would miss fp32's 2e-5 tolerance).  A block of 128 threads
 // owns 64 query rows, two threads per row; Q, K, V tiles are staged into
-// padded float shared memory, with the same tile skipping and tail masking.
+// padded float shared memory (209 KB at hd 256), with the same tile
+// skipping and tail masking.
 #include "common.cuh"
 
 namespace {
@@ -233,6 +238,7 @@ flash_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __re
   constexpr int KS = HD / 16;  // k-steps of Q.K^T
   constexpr int NT = kBK / 8;  // 8-key column groups of the scores
   constexpr int DT = HD / 8;   // 8-wide column groups of the output
+  constexpr int NH = HD > 128 ? 128 : HD;  // output columns of one P.V wgmma
   const int G = H / K;
   const int b = blockIdx.x / H;
   const int hq = blockIdx.x % H;
@@ -359,7 +365,12 @@ flash_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __re
     pin<HD / 2>(o);
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < kBK / 16; ++kk) wgmma_rs<HD>(o, pa[kk], L::mn_major(vs, kk));
+    for (int kk = 0; kk < kBK / 16; ++kk) {
+#pragma unroll
+      for (int h = 0; h < HD / NH; ++h)  // output columns [h NH, (h + 1) NH)
+        wgmma_rs<NH>(o + h * (NH / 2), pa[kk],
+                     L::mn_major(vs + h * (NH / L::AC) * L::kBlock, kk));
+    }
     wgmma_commit_and_wait();
     pin<HD / 2>(o);
     __syncthreads();  // this stage is refilled by the next iteration's copies
@@ -565,6 +576,7 @@ extern "C" int flash_attention_launch(const void* q, const void* k, const void* 
       case 32: return bf16::launch<32>(q, k, v, out, B, S, H, K, causal, window, s);
       case 64: return bf16::launch<64>(q, k, v, out, B, S, H, K, causal, window, s);
       case 128: return bf16::launch<128>(q, k, v, out, B, S, H, K, causal, window, s);
+      case 256: return bf16::launch<256>(q, k, v, out, B, S, H, K, causal, window, s);
       default: return cudaErrorInvalidValue;
     }
   }
@@ -573,6 +585,7 @@ extern "C" int flash_attention_launch(const void* q, const void* k, const void* 
       case 32: return f32::launch<32>(q, k, v, out, B, S, H, K, causal, window, s);
       case 64: return f32::launch<64>(q, k, v, out, B, S, H, K, causal, window, s);
       case 128: return f32::launch<128>(q, k, v, out, B, S, H, K, causal, window, s);
+      case 256: return f32::launch<256>(q, k, v, out, B, S, H, K, causal, window, s);
       default: return cudaErrorInvalidValue;
     }
   }

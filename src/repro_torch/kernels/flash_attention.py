@@ -2,8 +2,9 @@
 kernel in `csrc/flash_attention.cu`, which replaces the TPU Pallas kernel
 `repro/kernels/flash_attention.py`.
 
-q (B, S, H, hd); k, v (B, S, K, hd) with H = K * G; any S (tails are
-masked in the kernel; the TPU kernel needed S to be a block multiple).
+q (B, S, H, hd); k, v (B, S, K, hd) with H = K * G and hd in `HEAD_DIMS`;
+any S (tails are masked in the kernel; the TPU kernel needed S to be a
+block multiple).
 
 A CPU tensor runs the plain version (`ref.flash_attention_ref`); a CUDA
 tensor launches the kernel of its dtype on the current stream, or raises:
@@ -19,8 +20,12 @@ import functools
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.paged_attention import DTYPE_CODES, HEAD_DIMS, check_cuda_inputs
+from repro_torch.kernels.paged_attention import DTYPE_CODES, check_cuda_inputs
 from repro_torch.kernels.ref import flash_attention_ref
+
+# head dims the kernel is instantiated for (RecurrentGemma's local attention
+# is hd 256; the paged decode kernel keeps its own, smaller set)
+HEAD_DIMS = (32, 64, 128, 256)
 
 
 @functools.lru_cache(maxsize=None)

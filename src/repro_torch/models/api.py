@@ -1,4 +1,4 @@
-"""Unified model API (port of `repro/models/api.py`): build an attention-family
+"""Unified model API (port of `repro/models/api.py`): build any assigned
 architecture and get its init / prefill / decode functions, its parameter
 shapes without materializing them, and concrete random input batches.
 """
@@ -17,12 +17,6 @@ from repro_torch.models.tensors import flatten_params
 # Sequences longer than this use blockwise attention in the reference; the
 # port's prefill always runs the flash kernel, which is blockwise already.
 CHUNKED_ATTN_THRESHOLD = 2048
-
-
-def _check_family(cfg: ModelConfig):
-    if cfg.family == "audio":
-        raise NotImplementedError(
-            "encoder-decoder models are not ported yet — see ROADMAP queue 1")
 
 
 @dataclass(frozen=True)
@@ -46,7 +40,9 @@ class Model:
 
     # --------------------------------------------------------------- prefill
     def prefill(self, params, batch, *, cache_cap: int = 0):
-        _check_family(self.cfg)
+        if self.cfg.family == "audio":
+            return encdec.forward(params, self.cfg, batch["tokens"], batch["enc_frames"],
+                                  make_cache=True, cache_cap=cache_cap)
         S = batch["tokens"].shape[1]
         return lm.forward(
             params, self.cfg, batch["tokens"],
@@ -56,7 +52,8 @@ class Model:
 
     # ---------------------------------------------------------------- decode
     def decode(self, params, token, pos, cache):
-        _check_family(self.cfg)
+        if self.cfg.family == "audio":
+            return encdec.decode_step(params, self.cfg, token, pos, cache)
         mrope = None
         if self.cfg.mrope_sections:
             # text continuation: all three M-RoPE streams advance together
@@ -66,7 +63,8 @@ class Model:
 
     # ----------------------------------------------------------- cache specs
     def cache_specs(self, batch: int, cap: int):
-        _check_family(self.cfg)
+        if self.cfg.family == "audio":
+            return encdec.cache_specs(self.cfg, batch, cap)
         return lm.cache_specs(self.cfg, batch, cap)
 
     # ------------------------------------------------- concrete smoke batches
@@ -74,12 +72,12 @@ class Model:
                    device="cuda") -> dict[str, Any]:
         """Concrete random inputs of the reference's `make_batch` for `shape`.
 
-        train / prefill: tokens uniform over the vocab, plus the VLM stub's
-        patch embeddings (standard normal cast to the model's dtype, then
-        scaled by 0.02 in it) and text-style M-RoPE positions.  decode: one
-        token per sequence, positions 0 and a cache of capacity
-        `shape.seq_len` (K/V drawn as the embeddings are, `kv_pos` 0)."""
-        _check_family(self.cfg)
+        train / prefill: tokens uniform over the vocab, plus the audio stub's
+        encoder frames (B, encoder_seq, d_model) or the VLM stub's patch
+        embeddings (standard normal cast to the model's dtype, then scaled by
+        0.02 in it) and text-style M-RoPE positions.  decode: one token per
+        sequence, positions 0 and a cache of capacity `shape.seq_len` (float
+        leaves drawn as the embeddings are, integer ones 0)."""
         device = resolve_device(device)
         cfg = self.cfg
         B, S = shape.global_batch, shape.seq_len
@@ -93,16 +91,24 @@ class Model:
 
         if shape.kind in ("train", "prefill"):
             batch = {"tokens": tokens(B, S)}
+            if cfg.family == "audio":
+                batch["enc_frames"] = normal((B, cfg.encoder_seq, cfg.d_model),
+                                             cfg.torch_dtype)
             if cfg.family == "vlm":
                 batch["vision_embeds"] = normal((B, cfg.vision_stub_patches, cfg.d_model),
                                                 cfg.torch_dtype)
                 batch["mrope_positions"] = torch.arange(
                     S, dtype=torch.int32, device=device).expand(3, B, S)
             return batch
-        cache = [tuple({key: (torch.zeros(shp, dtype=dt, device=device)
-                              if dt == torch.int32 else normal(shp, dt))
-                        for key, (shp, dt) in unit.items()} for unit in seg)
-                 for seg in self.cache_specs(B, S)]
+
+        def leaves(spec: dict):
+            return {key: (torch.zeros(shp, dtype=dt, device=device)
+                          if dt == torch.int32 else normal(shp, dt))
+                    for key, (shp, dt) in spec.items()}
+
+        specs = self.cache_specs(B, S)
+        cache = (leaves(specs) if cfg.family == "audio"
+                 else [tuple(leaves(unit) for unit in seg) for seg in specs])
         return {"token": tokens(B), "pos": torch.zeros((B,), dtype=torch.int32, device=device),
                 "cache": cache}
 

@@ -1,5 +1,5 @@
 """Shared model building blocks (port of `repro/models/common.py`): norms,
-rotary embeddings, attention, MLP.
+rotary embeddings, attention, MLPs and the causal depthwise conv.
 
 Pure functions over explicit parameter dicts with the reference's key names.
 Conventions and cast order follow the reference:
@@ -193,3 +193,29 @@ def attention_chunked(q, k, v, *, causal: bool, window: int = 0,
 def swiglu(x, wg, wu, wd):
     h = F.silu(x @ wg) * (x @ wu)
     return h @ wd
+
+
+def gelu_mlp(x, wi, bi, wo, bo):
+    # jax.nn.gelu defaults to the tanh approximation; torch's to erf
+    h = F.gelu(x @ wi + bi, approximate="tanh")
+    return h @ wo + bo
+
+
+# ------------------------------------------------------------------------- conv1d
+def causal_conv1d(x, w, state=None):
+    """Depthwise causal conv. x: (B, S, C), w: (W, C).
+
+    Prefill: state=None, left-pads with zeros; returns (y, new_state) where
+    new_state = last (W-1) inputs.  Decode: x is (B, 1, C), state is
+    (B, W-1, C); returns (y, shifted state).
+    """
+    W = w.shape[0]
+    if state is None:
+        pad = torch.zeros((x.shape[0], W - 1, x.shape[2]), dtype=x.dtype, device=x.device)
+    else:
+        pad = state
+    xp = torch.cat([pad, x], dim=1)  # (B, S+W-1, C)
+    S = x.shape[1]
+    y = sum(xp[:, i : i + S, :] * w[i][None, None, :] for i in range(W))
+    new_state = xp[:, -(W - 1):, :] if W > 1 else torch.zeros_like(pad)
+    return y.to(x.dtype), new_state

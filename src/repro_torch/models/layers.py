@@ -1,5 +1,6 @@
-"""Layer-kind implementations (port of `repro/models/layers.py`): the "attn" /
-"swa" transformer block with a dense SwiGLU MLP.
+"""Layer-kind implementations (port of `repro/models/layers.py`): "attn" /
+"swa" transformer blocks (dense or MoE), "ssd" Mamba2 blocks, "rglru"
+RecurrentGemma blocks.
 
 Each kind exposes:
   init_<kind>(gen, cfg, device)                  -> params (dict)
@@ -11,9 +12,9 @@ Prefill attention goes through the flash kernel (`kernels.ops`), which
 computes the same function as the reference's `attention_dense` for
 prefill's arange positions.  The MoE MLP is the reference's scatter
 dispatch (`moe_forward`; its grouped and GShard dispatches are not ported).
-The Mamba2 ("ssd") and RG-LRU ("rglru") kinds have their parameter trees
-(so every architecture's tensor records match the reference's) but raise
-when run.
+Sliding-window layers keep a ring cache of `kv_capacity` slots keyed by
+``pos % cap``.  The SSD scan and the RG-LRU recurrence are plain PyTorch, as
+the reference computes them outside any Pallas kernel.
 """
 from __future__ import annotations
 
@@ -27,9 +28,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops as kops
 from repro_torch.models import common
-from repro_torch.models.common import rms_norm, uniform_scaled
-
-_NOT_PORTED = "not ported yet — see ROADMAP queue 1"
+from repro_torch.models.common import F32, rms_norm, uniform_scaled
 
 
 @dataclass
@@ -288,12 +287,18 @@ def block_decode(p, x, cache, cfg: ModelConfig, ctx: SeqCtx, kind: str):
     return x + _mlp(p, h, cfg, DECODE_CAPACITY_FACTOR), cache
 
 
-# ============================================ Mamba2 (SSD) and RG-LRU parameters
+# ================================================================== Mamba2 (SSD)
+def _ssd_dims(cfg: ModelConfig):
+    d_in = cfg.ssm_expand * cfg.d_model
+    nheads = d_in // cfg.ssm_head_dim
+    N = cfg.ssm_state
+    conv_dim = d_in + 2 * N  # x, B, C share the causal conv (ngroups = 1)
+    return d_in, nheads, N, conv_dim
+
+
 def init_ssd(gen, cfg: ModelConfig, device):
     d = cfg.d_model
-    d_in = cfg.ssm_expand * d
-    H = d_in // cfg.ssm_head_dim
-    conv_dim = d_in + 2 * cfg.ssm_state
+    d_in, H, _, conv_dim = _ssd_dims(cfg)
     dt = cfg.torch_dtype
     f32 = dict(dtype=torch.float32, device=device)
     return {
@@ -311,6 +316,137 @@ def init_ssd(gen, cfg: ModelConfig, device):
     }
 
 
+def segsum(x):
+    """x: (..., T) -> (..., T, T); out[i, j] = sum_{j < k <= i} x_k (lower-tri),
+    -inf above the diagonal (so exp gives 0 there, never NaN)."""
+    T = x.shape[-1]
+    ones = torch.ones((T, T), dtype=torch.bool, device=x.device)
+    xr = x[..., :, None].expand(*x.shape, T)
+    xr = xr.masked_fill(~torch.tril(ones, -1), 0.0)
+    cs = torch.cumsum(xr, dim=-2)
+    return cs.masked_fill(~torch.tril(ones), float("-inf"))
+
+
+def ssd_chunked(x, A, Bm, Cm, chunk: int, init_state=None):
+    """Chunked state-space-duality scan (Mamba2, arXiv:2405.21060 listing 1).
+
+    x: (b, s, h, p) dt-scaled inputs; A: (b, s, h) = dt * A (negative);
+    Bm, Cm: (b, s, n) (single group, broadcast over heads).
+    Returns (y: (b, s, h, p), final_state: (b, h, p, n)).  The reference's
+    three- and four-operand einsums run as pairwise products in its operand
+    order, so no (b, h, c, l, s, p) intermediate is ever built.
+    """
+    b, s, h, p_ = x.shape
+    n = Bm.shape[-1]
+    assert s % chunk == 0
+    c = s // chunk
+    xr = x.reshape(b, c, chunk, h, p_).to(F32)
+    Ar = A.reshape(b, c, chunk, h).permute(0, 3, 1, 2).to(F32)  # (b,h,c,l)
+    Br = Bm.reshape(b, c, chunk, n).to(F32)
+    Cr = Cm.reshape(b, c, chunk, n).to(F32)
+
+    A_cs = torch.cumsum(Ar, dim=-1)  # (b,h,c,l)
+    L = torch.exp(segsum(Ar))  # (b,h,c,l,l)
+
+    # diagonal (intra-chunk) term: bcln,bcsn,bhcls,bcshp->bclhp
+    CB = torch.einsum("bcln,bcsn->bcls", Cr, Br)
+    y_diag = torch.einsum("bhcls,bcshp->bclhp", CB[:, None] * L, xr)
+
+    # per-chunk end states: bcln,bhcl,bclhp->bchpn
+    decay_states = torch.exp(A_cs[..., -1:] - A_cs)  # (b,h,c,l)
+    xd = xr * decay_states.permute(0, 2, 3, 1)[..., None]  # (b,c,l,h,p)
+    states = torch.einsum("bcln,bclhp->bchpn", Br, xd)
+
+    init = (torch.zeros((b, 1, h, p_, n), dtype=F32, device=x.device)
+            if init_state is None else init_state.to(F32)[:, None])
+    states = torch.cat([init, states], dim=1)  # (b, c+1, h, p, n)
+    chunk_decay = torch.exp(segsum(F.pad(A_cs[..., -1], (1, 0))))  # (b,h,c+1,c+1)
+    new_states = torch.einsum("bhzc,bchpn->bzhpn", chunk_decay, states)
+    states_in, final_state = new_states[:, :-1], new_states[:, -1]
+
+    # off-diagonal term: bcln,bchpn,bhcl->bclhp
+    state_decay_out = torch.exp(A_cs)  # (b,h,c,l)
+    y_off = (torch.einsum("bcln,bchpn->bclhp", Cr, states_in)
+             * state_decay_out.permute(0, 2, 3, 1)[..., None])
+    y = (y_diag + y_off).reshape(b, s, h, p_)
+    return y.to(x.dtype), final_state
+
+
+def _silu(x):
+    """jax.nn.silu's roundings: sigmoid in the input's dtype, then the
+    product (F.silu rounds once, from float32)."""
+    return x * torch.sigmoid(x)
+
+
+def _ssd_project(p, x, cfg: ModelConfig):
+    z = x @ p["z_proj"]
+    xbc = x @ p["xbc_proj"]
+    dt = x @ p["dt_proj"]
+    dt = F.softplus(dt.to(F32) + p["dt_bias"])  # (B,S,H)
+    return z, xbc, dt
+
+
+def ssd_forward(p, x, cfg: ModelConfig, ctx: SeqCtx):
+    B, S, _ = x.shape
+    d_in, H, N, _ = _ssd_dims(cfg)
+    u = rms_norm(x, p["ln"], cfg.norm_eps)
+    z, xbc, dt = _ssd_project(p, u, cfg)
+    xbc, conv_state = common.causal_conv1d(xbc, p["conv_w"])
+    xbc = _silu(xbc)
+    xs, Bm, Cm = torch.split(xbc, [d_in, N, N], dim=-1)
+    xh = xs.reshape(B, S, H, cfg.ssm_head_dim)
+    A = -torch.exp(p["A_log"])  # (H,)
+    chunk = min(cfg.ssm_chunk, S)
+    pad = (-S) % chunk
+    if pad:
+        # dt = 0 on padded steps -> no decay, no input: final_state stays exact
+        xh_p = F.pad(xh, (0, 0, 0, 0, 0, pad))
+        dt_p, Bm_p, Cm_p = (F.pad(t, (0, 0, 0, pad)) for t in (dt, Bm, Cm))
+    else:
+        xh_p, dt_p, Bm_p, Cm_p = xh, dt, Bm, Cm
+    y, state = ssd_chunked(xh_p * dt_p[..., None].to(xh_p.dtype), dt_p * A, Bm_p, Cm_p,
+                           chunk)
+    y = y[:, :S]
+    y = y + p["D"][:, None].to(y.dtype) * xh
+    y = y.reshape(B, S, d_in)
+    y = rms_norm(y * F.silu(z.to(F32)).to(y.dtype), p["gnorm"], cfg.norm_eps)
+    out = y @ p["out_proj"]
+    cache = {"conv": conv_state, "state": state} if ctx.make_cache else None
+    return x + out, cache
+
+
+def ssd_decode(p, x, cache, cfg: ModelConfig, ctx: SeqCtx):
+    B = x.shape[0]
+    d_in, H, N, _ = _ssd_dims(cfg)
+    u = rms_norm(x, p["ln"], cfg.norm_eps)
+    z, xbc, dt = _ssd_project(p, u, cfg)  # S = 1
+    xbc, conv_state = common.causal_conv1d(xbc, p["conv_w"], state=cache["conv"])
+    xbc = _silu(xbc)
+    xs, Bm, Cm = torch.split(xbc[:, 0], [d_in, N, N], dim=-1)
+    xh = xs.reshape(B, H, cfg.ssm_head_dim).to(F32)
+    dt1 = dt[:, 0]  # (B, H)
+    A = -torch.exp(p["A_log"])
+    dA = torch.exp(dt1 * A)  # (B, H)
+    # bh,bn,bhp->bhpn
+    dbx = (dt1[:, :, None] * xh)[..., None] * Bm.to(F32)[:, None, None, :]
+    state = cache["state"] * dA[..., None, None] + dbx
+    y = torch.einsum("bn,bhpn->bhp", Cm.to(F32), state)
+    y = y + p["D"][:, None] * xh
+    y = y.reshape(B, 1, d_in).to(x.dtype)
+    y = rms_norm(y * F.silu(z.to(F32)).to(y.dtype), p["gnorm"], cfg.norm_eps)
+    out = y @ p["out_proj"]
+    return x + out, {"conv": conv_state, "state": state}
+
+
+def ssd_cache_spec(cfg: ModelConfig, batch: int):
+    _, H, N, conv_dim = _ssd_dims(cfg)
+    return {
+        "conv": ((batch, cfg.ssm_conv_width - 1, conv_dim), cfg.torch_dtype),
+        "state": ((batch, H, cfg.ssm_head_dim, N), F32),
+    }
+
+
+# ================================================================ RG-LRU (Griffin)
 def init_rglru(gen, cfg: ModelConfig, device):
     d = cfg.d_model
     w = cfg.lru_width or d
@@ -325,38 +461,120 @@ def init_rglru(gen, cfg: ModelConfig, device):
         "ba": torch.zeros((w,), **f32),
         "wi": uniform_scaled(gen, (w, w), dt, w, device),
         "bi": torch.zeros((w,), **f32),
+        # Lambda init so that a = sigmoid(Lambda)^(8r) sits in [0.9, 0.999]
         "Lambda": torch.linspace(2.0, 6.0, w, **f32),
         "out": uniform_scaled(gen, (w, d), dt, w, device),
     }
 
 
+_RG_C = 8.0
+
+
+def _rglru_gates(p, xb):
+    r = torch.sigmoid((xb @ p["wa"]).to(F32) + p["ba"])
+    i = torch.sigmoid((xb @ p["wi"]).to(F32) + p["bi"])
+    log_a = _RG_C * r * F.logsigmoid(p["Lambda"])  # (B,S,W) negative
+    a = torch.exp(log_a)
+    mult = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-12))
+    b = mult * i * xb.to(F32)
+    return a, b
+
+
+def linear_scan(a, b):
+    """h_t = a_t h_{t-1} + b_t along axis 1 from h_{-1} = 0, for (B, S, W)
+    tensors: `jax.lax.associative_scan` of the reference's combine
+    ``(a1, b1), (a2, b2) -> (a1 a2, b1 a2 + b2)``, in its odd/even
+    recursion (the same products in the same order, log2(S) levels of a
+    few whole-tensor operations each, no loop over S).  Returns (prod a, h)."""
+    S = a.shape[1]
+    if S < 2:
+        return a, b
+    # combine adjacent pairs, scan the half-length sequence recursively
+    a0, b0, a1, b1 = a[:, 0:-1:2], b[:, 0:-1:2], a[:, 1::2], b[:, 1::2]
+    odd_a, odd_b = linear_scan(a0 * a1, b0 * a1 + b1)
+    # even outputs: the previous odd output combined with the even input
+    a2, b2 = a[:, 2::2], b[:, 2::2]
+    if S % 2 == 0:
+        pa, pb = odd_a[:, :-1], odd_b[:, :-1]
+    else:
+        pa, pb = odd_a, odd_b
+    even_a = torch.cat([a[:, :1], pa * a2], dim=1)
+    even_b = torch.cat([b[:, :1], pb * a2 + b2], dim=1)
+    out_a, out_b = torch.empty_like(a), torch.empty_like(b)
+    out_a[:, 0::2], out_a[:, 1::2] = even_a, odd_a
+    out_b[:, 0::2], out_b[:, 1::2] = even_b, odd_b
+    return out_a, out_b
+
+
+def rglru_forward(p, x, cfg: ModelConfig, ctx: SeqCtx):
+    u = rms_norm(x, p["ln"], cfg.norm_eps)
+    xb = u @ p["wx"]
+    xb, conv_state = common.causal_conv1d(xb, p["conv_w"])
+    a, b = _rglru_gates(p, xb)
+    _, h = linear_scan(a, b)  # (B,S,W) fp32
+    gate = F.gelu((u @ p["wy"]).to(F32), approximate="tanh")
+    out = (h * gate).to(x.dtype) @ p["out"]
+    cache = None
+    if ctx.make_cache:
+        cache = {"conv": conv_state, "h": h[:, -1]}
+    return x + out, cache
+
+
+def rglru_decode(p, x, cache, cfg: ModelConfig, ctx: SeqCtx):
+    u = rms_norm(x, p["ln"], cfg.norm_eps)
+    xb = u @ p["wx"]
+    xb, conv_state = common.causal_conv1d(xb, p["conv_w"], state=cache["conv"])
+    a, b = _rglru_gates(p, xb)  # (B,1,W)
+    h = a[:, 0] * cache["h"] + b[:, 0]  # (B,W)
+    gate = F.gelu((u @ p["wy"]).to(F32), approximate="tanh")
+    out = (h[:, None] * gate).to(x.dtype) @ p["out"]
+    return x + out, {"conv": conv_state, "h": h}
+
+
+def rglru_cache_spec(cfg: ModelConfig, batch: int):
+    w = cfg.lru_width or cfg.d_model
+    return {
+        "conv": ((batch, 3, w), cfg.torch_dtype),
+        "h": ((batch, w), F32),
+    }
+
+
 # ============================================================== kind dispatch
-def _check_kind(kind: str):
-    if kind in ("ssd", "rglru"):
-        raise NotImplementedError(f"layer kind {kind!r} {_NOT_PORTED}")
-    if kind not in ("attn", "swa"):
-        raise ValueError(kind)
-
-
 def init_layer(gen, cfg: ModelConfig, kind: str, device):
+    if kind in ("attn", "swa"):
+        return init_block(gen, cfg, kind, device)
     if kind == "ssd":
         return init_ssd(gen, cfg, device)
     if kind == "rglru":
         return init_rglru(gen, cfg, device)
-    _check_kind(kind)
-    return init_block(gen, cfg, kind, device)
+    raise ValueError(kind)
 
 
 def layer_forward(p, x, cfg: ModelConfig, ctx: SeqCtx, kind: str):
-    _check_kind(kind)
-    return block_forward(p, x, cfg, ctx, kind)
+    if kind in ("attn", "swa"):
+        return block_forward(p, x, cfg, ctx, kind)
+    if kind == "ssd":
+        return ssd_forward(p, x, cfg, ctx)
+    if kind == "rglru":
+        return rglru_forward(p, x, cfg, ctx)
+    raise ValueError(kind)
 
 
 def layer_decode(p, x, cache, cfg: ModelConfig, ctx: SeqCtx, kind: str):
-    _check_kind(kind)
-    return block_decode(p, x, cache, cfg, ctx, kind)
+    if kind in ("attn", "swa"):
+        return block_decode(p, x, cache, cfg, ctx, kind)
+    if kind == "ssd":
+        return ssd_decode(p, x, cache, cfg, ctx)
+    if kind == "rglru":
+        return rglru_decode(p, x, cache, cfg, ctx)
+    raise ValueError(kind)
 
 
 def layer_cache_spec(cfg: ModelConfig, kind: str, batch: int, cap: int):
-    _check_kind(kind)
-    return attention_cache_spec(cfg, kind, batch, cap)
+    if kind in ("attn", "swa"):
+        return attention_cache_spec(cfg, kind, batch, cap)
+    if kind == "ssd":
+        return ssd_cache_spec(cfg, batch)
+    if kind == "rglru":
+        return rglru_cache_spec(cfg, batch)
+    raise ValueError(kind)

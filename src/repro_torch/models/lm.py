@@ -1,11 +1,13 @@
-"""Decoder-only LM assembly (port of `repro/models/lm.py`) for the attention
-families (dense, MoE and VLM).
+"""Decoder-only LM assembly (port of `repro/models/lm.py`) covering the dense,
+MoE, SSM, hybrid and VLM families.
 
 The parameter tree keeps the reference's stacked layout: `segments[i]` is a
 tuple with one dict per layer kind of the segment's repeating unit, and
 every leaf carries a leading `repeat` axis.  Where the reference scans over
 that axis, the port loops over it and indexes the stacked leaves (views, no
-copies).
+copies).  A hybrid's segments may differ in their units (RecurrentGemma:
+(rglru, rglru, swa) x 12, then (rglru, rglru)), and one unit's caches may
+mix ring K/V with recurrence states.
 """
 from __future__ import annotations
 
@@ -110,9 +112,9 @@ def forward(params, cfg: ModelConfig, tokens, *, mrope_positions=None,
 # ----------------------------------------------------------------------- decode
 def decode_step(params, cfg: ModelConfig, token, pos, caches, *,
                 mrope_positions=None):
-    """One decode step over the ring caches. token: (B,) int32; pos: (B,)
-    int32 absolute position; caches: as produced by forward(make_cache=True).
-    Returns (logits, caches)."""
+    """One decode step over the ring caches and recurrence states. token:
+    (B,) int32; pos: (B,) int32 absolute position; caches: as produced by
+    forward(make_cache=True).  Returns (logits, caches)."""
     positions = pos[:, None]  # (B, 1)
     ctx = L.SeqCtx(positions=positions, mrope_positions=mrope_positions)
     x = params["embed"][token][:, None, :]  # (B, 1, D)

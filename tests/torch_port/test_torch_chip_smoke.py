@@ -175,3 +175,49 @@ def test_dedup_and_migration_phases_rehearse_on_cpu(monkeypatch):
     assert out["delta_bytes"] == 2 * 4 * 256 * 256 * 2  # stacked wq and wo, bf16
     mig = cs.migration_phase(cfg, weights["deepseek-7b"], "cpu")
     assert mig["bytes"] == 2 * 4 * 3 * 16 * 8 * 32 * 2  # K + V, 3 pages of 16 tokens
+
+
+TINY_STATE = {
+    "mixtral-8x7b": dict(num_layers=6, d_model=128, d_ff=256, moe_d_ff=256, vocab_size=512,
+                         num_heads=4, num_kv_heads=2, head_dim=32, sliding_window=64),
+    "recurrentgemma-9b": dict(num_layers=8, d_model=128, lru_width=128, d_ff=256,
+                              vocab_size=1024, num_heads=4, num_kv_heads=1, head_dim=32,
+                              sliding_window=64,
+                              layer_pattern=("rglru", "rglru", "swa") * 2 + ("rglru", "rglru")),
+    "mamba2-2.7b": dict(num_layers=4, d_model=96, vocab_size=512, ssm_state=16,
+                        ssm_head_dim=16, ssm_chunk=32),
+    "whisper-tiny": dict(num_layers=2, encoder_layers=2, d_model=32, num_heads=2,
+                         num_kv_heads=2, head_dim=16, d_ff=64, vocab_size=64, encoder_seq=32),
+}
+
+
+def test_state_families_phase_rehearses_on_cpu(monkeypatch):
+    """The [state-families] phase on the CPU: the four non-paged families
+    (recurrentgemma-9b in its two-segment pattern) through the Gateway with
+    the seeded trace's warm, full h2d and partial-reuse starts and the pool
+    rule, every load's bytes, the first requests against the plain
+    attention, launches by model (K2 per attention layer, the encoder's
+    too; no K1), then the long-prompt probes over window-sized rings."""
+    from collections import Counter
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.trace import SimModel
+    from repro_torch.serverless import poisson_trace
+
+    cs = load_chip_smoke()
+    monkeypatch.setattr(cs, "STATE_PROMPT", 24)
+    monkeypatch.setattr(cs, "SERVERLESS_GEN", 4)
+    monkeypatch.setattr(cs, "STATE_LONG", {"recurrentgemma-9b": 80, "mixtral-8x7b": 100})
+    count_plain_calls(monkeypatch)
+    cfgs = {m: dataclasses.replace(get_config(m), **TINY_STATE[m]) for m in cs.STATE_MODELS}
+    weights = {m: cs.draw_weights(c, i, "cpu") for i, (m, c) in enumerate(cfgs.items())}
+    per_model = cs.state_families_phase(cfgs, weights, "cpu")
+    trace = poisson_trace(models=[SimModel(m, 1e6, 1) for m in cfgs], **cs.STATE_TRACE)
+    n = Counter(r.model_id for r in trace)
+    attn = {"mixtral-8x7b": 6, "recurrentgemma-9b": 2, "mamba2-2.7b": 0, "whisper-tiny": 4}
+    assert set(n) == set(cfgs)
+    assert per_model == {**{m: {"paged_attention": 0, "flash_attention": attn[m] * n[m]}
+                            for m in cfgs},
+                         "recurrentgemma-9b long": {"paged_attention": 0,
+                                                    "flash_attention": 2},
+                         "mixtral-8x7b long": {"paged_attention": 0, "flash_attention": 6}}

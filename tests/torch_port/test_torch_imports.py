@@ -39,6 +39,7 @@ def test_port_imports_with_jax_blocked():
         "    sys.modules[name] = None\n"
         "import repro_torch, repro_torch.configs, repro_torch.core, repro_torch.obs\n"
         "import repro_torch.models.convert, repro_torch.kernels.ops\n"
+        "import repro_torch.models.layers, repro_torch.models.encdec\n"
         "import repro_torch.serving.engine, repro_torch.serverless\n"
         "import repro_torch.serverless.gateway, repro_torch.serverless.fleet\n"
         "import repro_torch.core.cluster, repro_torch.launch.serve\n"
@@ -75,3 +76,27 @@ def test_kernel_library_path_tracks_sources(tmp_path, monkeypatch):
         (csrc / "paged_attention.cu").read_text() + "\n// edit\n")
     assert build.lib_path("paged_attention") != before
     assert build.lib_path("flash_attention").parent == before.parent
+
+
+@pytest.mark.parametrize("module,names", [
+    ("repro_torch.models.common", ("causal_conv1d", "gelu_mlp")),
+    ("repro_torch.models.layers", ("segsum", "ssd_chunked", "ssd_forward", "ssd_decode",
+                                   "ssd_cache_spec", "linear_scan", "rglru_forward",
+                                   "rglru_decode", "rglru_cache_spec")),
+    ("repro_torch.models.encdec", ("layer_norm", "encode", "forward", "decode_step",
+                                   "cache_specs")),
+])
+def test_state_family_modules_import_without_jax(module, names):
+    """The state families' modules import with JAX and the reference
+    blocked, and carry every function the reference's counterparts have."""
+    code = ("import importlib, sys\n"
+            "for name in ('jax', 'jaxlib', 'ml_dtypes', 'repro'):\n"
+            "    sys.modules[name] = None\n"
+            f"m = importlib.import_module({module!r})\n"
+            f"missing = [n for n in {names!r} if not callable(getattr(m, n, None))]\n"
+            "print(missing)\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"

@@ -189,6 +189,39 @@ def test_flash_kernel_bf16_windows_and_heads(cuda_device, H, K, causal, window, 
     assert max_err(out, ref) < TOL["bfloat16"]
 
 
+HD256_HEADS = [(16, 16), (16, 2), (16, 1)]  # G = 1, 8, 16 (RecurrentGemma: MQA, G 16)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("H,K", HD256_HEADS)
+@pytest.mark.parametrize("S", [1, 63, 64, 65, 129, 300])
+def test_flash_kernel_head_dim_256_at_tile_boundaries(cuda_device, dtype, H, K, S):
+    """hd 256 (four 64-column blocks; P.V as two m64n128 halves in bf16) at S
+    on both sides of the 64-row tiles, causal."""
+    rng = np.random.default_rng(S + H + K)
+    q = randn(rng, (1, S, H, 256), dtype, cuda_device)
+    k = randn(rng, (1, S, K, 256), dtype, cuda_device)
+    v = randn(rng, (1, S, K, 256), dtype, cuda_device)
+    out = ops.flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert max_err(out, flash_attention_ref(q, k, v, causal=True)) < TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("H,K", HD256_HEADS)
+@pytest.mark.parametrize("causal,window", [(True, 64), (True, 100), (False, 0), (False, 80)])
+def test_flash_kernel_head_dim_256_windows(cuda_device, dtype, H, K, causal, window):
+    """hd 256 with windows spanning several tiles and non-causal."""
+    S = 330
+    rng = np.random.default_rng(H + K + window)
+    q = randn(rng, (1, S, H, 256), dtype, cuda_device)
+    k = randn(rng, (1, S, K, 256), dtype, cuda_device)
+    v = randn(rng, (1, S, K, 256), dtype, cuda_device)
+    out = ops.flash_attention(q, k, v, causal=causal, window=window)
+    ref = flash_attention_ref(q, k, v, causal=causal, window=window)
+    assert max_err(out, ref) < TOL[dtype]
+
+
 def test_flash_kernel_bf16_long_prompt(cuda_device):
     """One 4k-token prompt at llama3.2-1b's heads."""
     rng = np.random.default_rng(4096)

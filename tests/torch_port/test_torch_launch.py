@@ -2,7 +2,8 @@
 the CPU (the port with ``--device cpu``): the same command line prints the
 same lines once the wall-clock fields are taken out — the round-robin and
 the ``--trace poisson --keep-alive-policy adaptive`` runs of
-tests/test_launchers.py, and the fleet replay under ``--chaos``.
+tests/test_launchers.py, the fleet replay under ``--chaos``, and a
+round-robin over two state families (mamba2-2.7b, whisper-tiny).
 
 What stays is what the control plane decided: per request the model, the
 engine, cold or warm, the reuse fraction and bytes moved, the pool's free
@@ -36,6 +37,9 @@ RUNS = {
                     "--requests", "4", "--n-engines", "2", "--chaos",
                     "--mean-interarrival", "200", "--prompt-len", "16",
                     "--gen-tokens", "2"],
+    # the Engine's non-paged fallback: an SSD model and the encoder-decoder
+    "state_families": ["--models", "mamba2-2.7b,whisper-tiny", "--requests", "3",
+                       "--prompt-len", "16", "--gen-tokens", "4"],
 }
 
 WALL = re.compile(r" *\d+(\.\d+)?(ms/tok|ms|s)\b")

@@ -43,7 +43,7 @@ def close_to(port, ref, dtype) -> bool:
     return max_err(port, ref) <= TOL[dtype] * scale
 
 
-def paired_engines(models, cap=64 << 20, ref_cls=None, **kw):
+def paired_engines(models, cap=64 << 20, ref_cls=None, port_cls=None, **kw):
     """A reference and a port engine (CPU) with the same models registered
     over the same weights, drawn once by the reference.  `models`:
     {model_id: (ref_cfg, port_cfg, seed)}.  Returns (ref, port, weights)
@@ -56,7 +56,7 @@ def paired_engines(models, cap=64 << 20, ref_cls=None, **kw):
     from repro_torch.serving.engine import Engine as PortEngine
 
     ref = (ref_cls or RefEngine)(cap, **kw)
-    port = PortEngine(cap, device="cpu", **kw)
+    port = (port_cls or PortEngine)(cap, device="cpu", **kw)
     weights = {}
     for mid, (rc, pc, seed) in models.items():
         params = ref_build(rc).init(jax.random.PRNGKey(seed))
