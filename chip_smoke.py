@@ -68,7 +68,22 @@ run outside a checkout of the repository):
    (recurrentgemma-9b 2200, mixtral 4200) straight through `Engine`, over a
    window-sized ring, each held against the plain attention path;
 10. `[launcher]`: ``python -m repro_torch.launch.serve --trace poisson
-   --n-engines 2 --chaos`` at the launcher's own smoke sizes, on the card.
+   --n-engines 2 --chaos`` at the launcher's own smoke sizes, on the card;
+11. `[train]`: the training path, which launches neither kernel (the loss
+   runs the plain attention, as the reference's does; both counters must
+   stay 0).  llama3.2-1b at full width and depth through
+   `repro_torch.launch.train.main` (B 8, S 512, bf16, remat off, 12 steps:
+   step wall, tokens/s, model FLOP/s, peak memory), then (a) the first loss
+   near ln(vocab), (b) one step's bf16 loss and gradients against the same
+   step in fp32, (c) the loss over 20 steps on one repeated batch falls by
+   more than 1 nat, (d) remat on against off (loss, gradients, peak
+   memory) and the launcher's steps again with remat on, and a profile of 3
+   steps; a checkpoint round trip of the trained params and AdamW moments
+   at full width (bitwise); qwen3-moe-30b-a3b at full width, 4 of its 48
+   layers, through the launcher's loop under each MoE dispatch, and the
+   three dispatches' losses and gradients held against each other; the
+   training launcher's CLI contract (a module run, a resume, every
+   architecture at --smoke).
 
 Each phase frees the page-locked weights it drew before the next draws its
 own, and every phase line prints the host's memory.
@@ -82,6 +97,7 @@ import argparse
 import contextlib
 import functools
 import gc
+import io
 import json
 import math
 import os
@@ -1549,6 +1565,477 @@ def launcher_phase(device="cuda"):
     log(f"[launcher] exit 0 in {time.perf_counter() - t0:.3f} s")
 
 
+# ------------------------------------------------------------------ phase 11
+TRAIN_ARCH = "llama3.2-1b"
+TRAIN_BATCH, TRAIN_SEQ = 8, 512
+TRAIN_STEPS = 12  # the launcher prints steps 0, 10 and 11
+TRAIN_LR = 1e-3  # the launcher's default
+TRAIN_CHECK_BATCH = 2  # (b): the bf16 step against the fp32 one
+TRAIN_REPEAT_STEPS = 20  # (c): one batch, repeated
+TRAIN_PROFILE_STEPS = 3
+TRAIN_LOSS_MARGIN = 1.0  # (a): |first loss - ln(vocab)| in nats
+TRAIN_GRAD_TOL = 5e-2  # relative L2 of a bf16 gradient leaf against its yardstick
+TRAIN_LOSS_TOL = 2e-2  # relative, bf16 (tests/test_kernels.py's bf16 tolerance)
+TRAIN_REMAT_TOL = 1e-3  # (d): relative, remat on against off (the same ops recomputed)
+MOE_TRAIN_ARCH, MOE_TRAIN_LAYERS, MOE_TRAIN_SEQ = "qwen3-moe-30b-a3b", 4, 512
+MOE_TRAIN_STEPS = 3  # of gshard, the launcher's default; then 1 of scatter, 1 of grouped
+CKPT_DIR = ROOT / "build" / "train_ckpt"
+TRAIN_LAUNCHER_STEPS = 2  # every architecture at --smoke
+
+
+def sync(dev):
+    import torch
+
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def peak_reset(dev):
+    import torch
+
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+
+
+def peak_bytes(dev) -> int:
+    import torch
+
+    if dev.type != "cuda":
+        return 0
+    torch.cuda.synchronize(dev)
+    return torch.cuda.max_memory_allocated(dev)
+
+
+def logged(tag, fn, *args, **kw):
+    """`fn(*args, **kw)` with its standard output logged under `tag`.
+    Returns (result, the output)."""
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        result = fn(*args, **kw)
+    for line in out.getvalue().splitlines():
+        log(f"[{tag}] {line}")
+    return result, out.getvalue()
+
+
+def run_train_main(argv, tag="train"):
+    """`repro_torch.launch.train.main(argv)` in this process (`logged`)."""
+    from repro_torch.launch import train as launcher
+
+    return logged(tag, launcher.main, argv)
+
+
+def grad_errors(got, want) -> dict[str, float]:
+    """Relative L2 error of each leaf of `got` against `want`."""
+    from repro_torch.models.tensors import flatten_params
+
+    out = {}
+    for (n, a), (_, b) in zip(flatten_params(got), flatten_params(want)):
+        a, b = a.double(), b.double()
+        out[n] = float((a - b).norm()) / max(float(b.norm()), 1e-30)
+    return out
+
+
+def hold_grads(tag, what, got, want, loss_got, loss_want, grad_tol=TRAIN_GRAD_TOL,
+               loss_tol=TRAIN_LOSS_TOL):
+    errs = grad_errors(got, want)
+    worst = max(errs, key=errs.get)
+    rel = abs(loss_got - loss_want) / max(1.0, abs(loss_want))
+    log(f"[{tag}] {what}: loss {loss_got:.6f} vs {loss_want:.6f} (rel {rel:.3e}, held "
+        f"{loss_tol}), worst leaf {worst} rel L2 {errs[worst]:.3e} (held {grad_tol}) over "
+        f"{len(errs)} leaves")
+    assert rel <= loss_tol, (what, loss_got, loss_want)
+    assert errs[worst] <= grad_tol, (what, worst, errs[worst])
+
+
+def hold_every_leaf_moves(tag, grads):
+    import torch
+
+    from repro_torch.models.tensors import flatten_params
+
+    bad = [n for n, g in flatten_params(grads)
+           if not bool(torch.isfinite(g).all()) or not bool((g != 0).any())]
+    assert not bad, f"leaves with a zero or non-finite gradient: {bad}"
+    log(f"[{tag}] every leaf's gradient is finite and nonzero")
+
+
+def train_llama(cfg, device="cuda", smoke=False):
+    """llama3.2-1b through the training launcher, then checks (a)-(d), the
+    remat run, its peak memory and a profile.  Returns a trained
+    {"params", "opt"} tree for the checkpoint round trip."""
+    import torch
+
+    from repro_torch.launch.train import loss_and_grads, make_batch, train_step
+    from repro_torch.models import build_model, param_count
+    from repro_torch.models.tensors import flatten_params, tree_structure, tree_unflatten
+    from repro_torch.train.data import BigramStream, DataConfig
+    from repro_torch.train.optimizer import AdamWConfig, init_opt_state
+
+    dev = torch.device(device)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    argv = ["--arch", TRAIN_ARCH, *(["--smoke"] if smoke else []), "--steps",
+            str(TRAIN_STEPS), "--seq-len", str(TRAIN_SEQ), "--batch", str(TRAIN_BATCH),
+            "--lr", str(TRAIN_LR), "--device", device]
+    peak_reset(dev)
+    t0 = time.perf_counter()
+    run, _ = run_train_main(argv)
+    launcher_s = time.perf_counter() - t0
+    peak_off = peak_bytes(dev)
+    n_params = param_count(run.params)
+    (s0, loss0, _, w0), (s1, _, _, w1) = run.printed[0], run.printed[-1]
+    step_s = (w1 - w0) / (s1 - s0)
+    flops = 6 * n_params * tokens
+    log(f"[train] {TRAIN_ARCH} B {TRAIN_BATCH} S {TRAIN_SEQ} remat off, through "
+        f"launch.train.main: {launcher_s:.3f} s for {TRAIN_STEPS} steps, step wall "
+        f"{step_s * 1e3:.3f} ms (steps {s0 + 1}-{s1}), {tokens / step_s:.1f} tokens/s, "
+        f"model FLOP/s {flops / step_s / 1e12:.2f} T (6 N tokens, N {n_params}; "
+        f"{flops / step_s / PEAK_FLOPS['bfloat16']:.4f} of 989 T), peak memory {peak_off} B")
+    ln_v = math.log(cfg.vocab_size)
+    log(f"[train] (a) first loss {loss0:.4f}, ln(vocab) {ln_v:.4f}, "
+        f"margin held {TRAIN_LOSS_MARGIN}")
+    assert math.isfinite(loss0) and abs(loss0 - ln_v) <= TRAIN_LOSS_MARGIN, (loss0, ln_v)
+    launcher_losses = {s: loss for s, loss, _, _ in run.printed}
+    del run
+    release_memory()
+
+    model = build_model(cfg)
+    data = BigramStream(DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                                   global_batch=TRAIN_BATCH))
+
+    def fresh():
+        return model.init(torch.Generator(device=dev).manual_seed(0),
+                          max_positions=TRAIN_SEQ + 8, device=dev)
+
+    params = fresh()
+    batch = make_batch(cfg, data.batch(0, device=dev))
+    # (d) remat on and off: one step's loss and gradients, and their peaks
+    peaks = {}
+    for remat in (False, True):
+        peak_reset(dev)
+        loss, grads = loss_and_grads(model, params, batch, remat=remat)
+        peaks[remat] = peak_bytes(dev)
+        if not remat:
+            ref_loss, ref_grads = float(loss), grads
+        else:
+            hold_grads("train", "(d) remat on vs off, one step at B "
+                       f"{TRAIN_BATCH}", grads, ref_grads, float(loss), ref_loss,
+                       TRAIN_REMAT_TOL, TRAIN_REMAT_TOL)
+        del grads
+    hold_every_leaf_moves("train", ref_grads)
+    log(f"[train] (d) peak memory of one loss and gradient: remat off {peaks[False]} B, "
+        f"remat on {peaks[True]} B")
+    if dev.type == "cuda":
+        assert peaks[True] < peaks[False], peaks
+    del ref_grads
+    # (b) the bf16 step against the same step with the params cast to fp32
+    small = {k: v[:TRAIN_CHECK_BATCH] for k, v in batch.items()}
+    leaves = flatten_params(params)
+    p32 = tree_unflatten(tree_structure(params), [t.float() for _, t in leaves])
+    loss32, g32 = loss_and_grads(model, p32, small)
+    del p32
+    loss16, g16 = loss_and_grads(model, params, small)
+    hold_grads("train", f"(b) bf16 vs fp32 params, one step at B {TRAIN_CHECK_BATCH}",
+               g16, g32, float(loss16), float(loss32))
+    hold_every_leaf_moves("train", g16)
+    del g16, g32
+    release_memory()
+
+    # the launcher's steps again with remat on, from the same weights and data
+    opt_cfg = AdamWConfig(lr=TRAIN_LR, warmup_steps=max(10, TRAIN_STEPS // 10))
+    opt = init_opt_state(params)
+    peak_reset(dev)
+    remat_losses, t0 = {}, time.perf_counter()
+    for step in range(TRAIN_STEPS):
+        params, opt, loss, _ = train_step(model, params, opt,
+                                          make_batch(cfg, data.batch(step, device=dev)),
+                                          opt_cfg, remat=True)
+        if step in launcher_losses:
+            remat_losses[step] = (float(loss), time.perf_counter() - t0)
+    peak_on = peak_bytes(dev)
+    first, last = min(remat_losses), max(remat_losses)
+    step_on = (remat_losses[last][1] - remat_losses[first][1]) / (last - first)
+    log(f"[train] remat on: step wall {step_on * 1e3:.3f} ms, {tokens / step_on:.1f} tokens/s, "
+        f"model FLOP/s {flops / step_on / 1e12:.2f} T, peak memory {peak_on} B "
+        f"(remat off {peak_off} B)")
+    for step, (loss, _) in remat_losses.items():
+        rel = abs(loss - launcher_losses[step]) / max(1.0, abs(launcher_losses[step]))
+        log(f"[train] (d) step {step}: loss remat on {loss:.6f}, off "
+            f"{launcher_losses[step]:.6f} (rel {rel:.3e}, held {TRAIN_REMAT_TOL})")
+        assert rel <= TRAIN_REMAT_TOL, (step, loss, launcher_losses[step])
+    if dev.type == "cuda":
+        assert peak_on < peak_off, (peak_on, peak_off)
+        hold_step_never_syncs(model, params, opt, data, opt_cfg, cfg)
+        profile_train_steps(model, params, opt, batch, opt_cfg, tokens, flops)
+    del params, opt
+    release_memory()
+
+    # (c) one repeated batch: the loss must fall by more than 1 nat
+    params = fresh()
+    opt = init_opt_state(params)
+    opt_cfg = AdamWConfig(lr=TRAIN_LR, warmup_steps=max(10, TRAIN_REPEAT_STEPS // 10))
+    losses = []
+    for _ in range(TRAIN_REPEAT_STEPS):
+        params, opt, loss, _ = train_step(model, params, opt, batch, opt_cfg)
+        losses.append(loss)
+    losses = [float(x) for x in torch.stack(losses).cpu()]
+    log(f"[train] (c) {TRAIN_REPEAT_STEPS} steps on one batch: loss {losses[0]:.4f} -> "
+        f"{losses[-1]:.4f} (every 5th: "
+        + ", ".join(f"{x:.3f}" for x in losses[::5]) + ")")
+    assert losses[0] - losses[-1] > 1.0, losses
+    return {"params": params, "opt": opt}
+
+
+def hold_step_never_syncs(model, params, opt, data, opt_cfg, cfg):
+    """One launcher step that prints nothing (its batch from the stream, the
+    loss and gradients, AdamW) under `torch.cuda.set_sync_debug_mode("warn")`
+    must not wait for the device; a blocking host-to-device copy under the
+    same mode shows the probe sees a sync."""
+    import warnings
+
+    import torch
+
+    from repro_torch.launch.train import make_batch, train_step
+
+    def syncs(fn):
+        torch.cuda.synchronize()
+        with warnings.catch_warnings(record=True) as seen:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                fn()
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        return [str(w.message) for w in seen if "synchroniz" in str(w.message).lower()]
+
+    probe = syncs(lambda: torch.ones(8).to("cuda"))
+    step = syncs(lambda: train_step(model, params, opt,
+                                    make_batch(cfg, data.batch(TRAIN_STEPS, device="cuda")),
+                                    opt_cfg))
+    log(f"[train] syncs in one unprinted launcher step: {len(step)} (a blocking copy "
+        f"shows {len(probe)})" + (f"; first: {step[0][:200]}" if step else ""))
+    assert probe and not step, (probe, step)
+
+
+def profile_train_steps(model, params, opt, batch, opt_cfg, tokens, flops):
+    """Device busy and idle share of the launcher's step (remat off) over
+    TRAIN_PROFILE_STEPS steps under torch.profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.launch.train import train_step
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(TRAIN_PROFILE_STEPS):
+            params, opt, _, _ = train_step(model, params, opt, batch, opt_cfg)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / TRAIN_PROFILE_STEPS
+    by_name, n_kernels = _device_ms(prof, TRAIN_PROFILE_STEPS)
+    if not by_name:
+        log("[train] profile: device time not measured (the profiler saw no CUDA events)")
+        return
+    busy_ms = sum(by_name.values())
+    kinds = {"matmul": ("gemm", "nvjet", "cutlass", "sm90", "xmma"),
+             "elementwise": ("elementwise",), "reduce": ("reduce",)}
+    by_kind = {k: 0.0 for k in (*kinds, "other")}
+    for name, t in by_name.items():
+        kind = next((k for k, words in kinds.items()
+                     if any(w in name.lower() for w in words)), "other")
+        by_kind[kind] += t
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    log(f"[train] profile of {TRAIN_PROFILE_STEPS} steps (remat off): wall {wall_ms:.3f} "
+        f"ms/step, device busy {busy_ms:.3f} ms/step, busy share {busy_ms / wall_ms:.3f}, "
+        f"idle share {1 - busy_ms / wall_ms:.3f}, {n_kernels / TRAIN_PROFILE_STEPS:.0f} "
+        f"kernels/step, model FLOP/s over busy time {flops / (busy_ms / 1e3) / 1e12:.2f} T; "
+        "by kind (ms/step): " + ", ".join(f"{k} {t:.3f}" for k, t in by_kind.items()))
+    for name, t in top:
+        log(f"[train] profile top: {t:.3f} ms/step {name[:160]}")
+
+
+def checkpoint_round_trip(tree, cfg, device="cuda"):
+    """Save `tree` through `CheckpointManager`, restore it onto `device` and
+    compare every leaf bitwise; then delete the directory.  Where the disk
+    cannot hold it, a fresh tree of `cfg` cut in depth to fit is saved."""
+    import shutil
+
+    import torch
+
+    from repro_torch.models import build_model
+    from repro_torch.models.tensors import flatten_params
+    from repro_torch.train.checkpoint import CheckpointManager
+    from repro_torch.train.optimizer import init_opt_state
+
+    dev = torch.device(device)
+
+    def npz_bytes(t):  # bf16 is stored as f32
+        return t.numel() * max(t.element_size(), 4)
+
+    need = sum(npz_bytes(t) for _, t in flatten_params(tree))
+    CKPT_DIR.parent.mkdir(parents=True, exist_ok=True)
+    free = shutil.disk_usage(CKPT_DIR.parent).free
+    log(f"[train] checkpoint: {need} B of npz to write, {free} B free on the disk")
+    if free < need * 1.2 + (2 << 30):
+        import dataclasses
+
+        per_layer = need / cfg.num_layers
+        layers = max(1, int((free / 1.2 - (2 << 30)) // per_layer) - 1)
+        cfg = dataclasses.replace(cfg, num_layers=layers)
+        params = build_model(cfg).init(torch.Generator(device=dev).manual_seed(0),
+                                       max_positions=TRAIN_SEQ + 8, device=dev)
+        tree = {"params": params, "opt": init_opt_state(params)}
+        need = sum(npz_bytes(t) for _, t in flatten_params(tree))
+        log(f"[train] checkpoint cut to {layers} of {cfg.num_layers} layers: {need} B")
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    try:
+        mgr = CheckpointManager(str(CKPT_DIR))
+        sync(dev)
+        t0 = time.perf_counter()
+        mgr.save(TRAIN_STEPS, tree)
+        capture_s = time.perf_counter() - t0
+        mgr.wait()
+        save_s = time.perf_counter() - t0
+        on_disk = sum(f.stat().st_size for f in CKPT_DIR.rglob("*") if f.is_file())
+        t0 = time.perf_counter()
+        got = mgr.restore_latest(tree)
+        sync(dev)
+        restore_s = time.perf_counter() - t0
+        same = [n for (n, a), (_, b) in zip(flatten_params(got), flatten_params(tree))
+                if a.device == b.device and a.dtype == b.dtype and torch.equal(a, b)]
+        n_leaves = len(flatten_params(tree))
+        log(f"[train] checkpoint round trip: capture {capture_s:.3f} s, save {save_s:.3f} s "
+            f"({on_disk} B on disk, {on_disk / save_s / 1e9:.3f} GB/s), restore onto "
+            f"{dev.type} {restore_s:.3f} s; {len(same)} of {n_leaves} leaves bitwise equal")
+        assert len(same) == n_leaves
+        del got
+    finally:
+        shutil.rmtree(CKPT_DIR, ignore_errors=True)
+
+
+def train_moe(device="cuda", smoke=False):
+    """qwen3-moe-30b-a3b at full width with MOE_TRAIN_LAYERS of its layers
+    through the launcher's loop under each dispatch, then one step's loss
+    and gradients under the three dispatches at B 1 (the same function:
+    one capacity over S*k), router choices replayed from gshard's."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import loss_and_grads, make_batch, train
+    from repro_torch.models import build_model, param_count
+    from repro_torch.train.data import BigramStream, DataConfig
+
+    dev = torch.device(device)
+    full = get_config(MOE_TRAIN_ARCH)
+    cfg = full.smoke() if smoke else dataclasses.replace(full, num_layers=MOE_TRAIN_LAYERS)
+    model = build_model(cfg)
+    n = param_count(model.param_specs(max_positions=MOE_TRAIN_SEQ + 8))
+    log(f"[train] {MOE_TRAIN_ARCH} cut to {cfg.num_layers} of {full.num_layers} layers: "
+        f"{n} params, {n * 12} B of bf16 params and grads and fp32 moments")
+    for impl, steps in (("gshard", MOE_TRAIN_STEPS), ("scatter", 1), ("grouped", 1)):
+        peak_reset(dev)
+        t0 = time.perf_counter()
+        run, _ = logged(f"train {impl}", train, cfg, name=MOE_TRAIN_ARCH, steps=steps,
+                        seq_len=MOE_TRAIN_SEQ, batch=1, lr=TRAIN_LR, moe_impl=impl,
+                        device=device)
+        wall = time.perf_counter() - t0
+        log(f"[train] {impl}: {steps} step(s) in {wall:.3f} s with init, peak memory "
+            f"{peak_bytes(dev)} B; losses " + ", ".join(f"{loss:.4f}" for _, loss, _, _ in run.printed))
+        assert all(math.isfinite(loss) for _, loss, _, _ in run.printed)
+        del run
+        release_memory()
+
+    params = model.init(torch.Generator(device=dev).manual_seed(0),
+                        max_positions=MOE_TRAIN_SEQ + 8, device=dev)
+    data = BigramStream(DataConfig(vocab_size=cfg.vocab_size, seq_len=MOE_TRAIN_SEQ,
+                                   global_batch=1))
+    batch = make_batch(cfg, data.batch(0, device=dev))
+    choices = []
+    with router_choices(record=choices):
+        ref_loss, ref_grads = loss_and_grads(model, params, batch, moe_impl="gshard")
+    hold_every_leaf_moves("train", ref_grads)
+    for impl in ("scatter", "grouped"):
+        with router_choices(replay=choices):
+            loss, grads = loss_and_grads(model, params, batch, moe_impl=impl)
+        hold_grads("train", f"{impl} vs gshard, one step at B 1, S {MOE_TRAIN_SEQ}",
+                   grads, ref_grads, float(loss), float(ref_loss))
+        del grads
+    del ref_grads, params
+    release_memory()
+
+
+def train_launcher_contract(device="cuda", archs=None):
+    """tests/test_launchers.py's contract for the training launcher, on
+    `device`: a module run prints a loss, a relaunch resumes from its
+    checkpoint, and every architecture takes TRAIN_LAUNCHER_STEPS steps at
+    --smoke (in this process)."""
+    import shutil
+
+    from repro_torch.configs import arch_ids
+
+    cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch", "llama3.2-1b",
+           "--smoke", "--steps", "4", "--seq-len", "32", "--batch", "2", "--device", device]
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
+    for line in out.stdout.splitlines():
+        log(f"[train] module: {line}")
+    if out.returncode != 0:
+        raise RuntimeError(f"training launcher exited {out.returncode}:\n{out.stderr[-3000:]}")
+    assert "loss" in out.stdout
+    ckpt = CKPT_DIR.parent / "train_resume"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    try:
+        base = ["--arch", "yi-9b", "--smoke", "--steps", "6", "--seq-len", "32", "--batch",
+                "2", "--ckpt-every", "3", "--ckpt-dir", str(ckpt), "--device", device]
+        run_train_main(base, "train resume")
+        again = list(base)
+        again[again.index("--steps") + 1] = "8"
+        _, text = run_train_main(again, "train resume")
+        assert "resumed from step 6" in text, text
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    for arch in archs or arch_ids():
+        run, text = run_train_main(["--arch", arch, "--smoke", "--steps",
+                                    str(TRAIN_LAUNCHER_STEPS), "--seq-len", "32", "--batch",
+                                    "2", "--device", device], f"train {arch}")
+        assert "loss" in text and all(math.isfinite(x) for _, x, _, _ in run.printed), arch
+
+
+def train_phase(device="cuda", smoke=False):
+    """`[train]`: the training path on the card (training launches neither
+    kernel: the loss runs the plain attention, as the reference's does)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+
+    cfg = get_config(TRAIN_ARCH)
+    if smoke:
+        cfg = cfg.smoke()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    tree = train_llama(cfg, device, smoke)
+    log(f"[train] llama checks {time.perf_counter() - t0:.1f} s; {host_memory()}")
+    t0 = time.perf_counter()
+    checkpoint_round_trip(tree, cfg, device)
+    del tree
+    release_memory()
+    log(f"[train] checkpoint {time.perf_counter() - t0:.1f} s; {host_memory()}")
+    t0 = time.perf_counter()
+    train_moe(device, smoke)
+    log(f"[train] moe {time.perf_counter() - t0:.1f} s; {host_memory()}")
+    t0 = time.perf_counter()
+    train_launcher_contract(device)
+    log(f"[train] launcher contract {time.perf_counter() - t0:.1f} s; {host_memory()}")
+    counts = ops.launch_counts()
+    log(f"[train] (e) kernel launches over the phase: {counts}")
+    assert counts == {"paged_attention": 0, "flash_attention": 0}, counts
+    if torch.device(device).type == "cuda":
+        release_memory()
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.parse_args(argv)
@@ -1617,6 +2104,9 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     launcher_phase()
     log(f"[phase] launcher {time.perf_counter() - t0:.1f} s; {host_memory()}")
+    t0 = time.perf_counter()
+    train_phase()
+    log(f"[phase] train {time.perf_counter() - t0:.1f} s; {host_memory()}")
     for (name, label), row in rows.items():
         row["launches"] = counts[name] if label == "main" else launches[label][name]
     kernels = [{k: rows[key][k] for k in ("name", "route", "source", "replaces", "shape",

@@ -10,6 +10,7 @@ A CPU tensor runs the plain version (`ref.flash_attention_ref`); a CUDA
 tensor launches the kernel of its dtype on the current stream, or raises:
 bfloat16 runs the tensor-core kernel, float32 the CUDA-core one (tensor-core
 products would miss fp32's tolerance).  There is no fallback between them.
+The kernel has no backward, so a CUDA call that autograd would record raises.
 `flash_attention.launches` counts kernel launches.
 """
 from __future__ import annotations
@@ -20,7 +21,8 @@ import functools
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.paged_attention import DTYPE_CODES, check_cuda_inputs
+from repro_torch.kernels.paged_attention import (DTYPE_CODES, check_cuda_inputs,
+                                                check_no_autograd)
 from repro_torch.kernels.ref import flash_attention_ref
 
 # head dims the kernel is instantiated for (RecurrentGemma's local attention
@@ -51,6 +53,7 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
     if hd not in HEAD_DIMS:
         raise ValueError(f"head dim {hd} not in {HEAD_DIMS}")
     kv = (q.dtype,)
+    check_no_autograd("flash_attention", {"q": q, "k": k, "v": v})
     check_cuda_inputs({"q": q, "k": k, "v": v},
                       {"q": tuple(DTYPE_CODES), "k": kv, "v": kv})
     out = torch.empty_like(q)

@@ -9,7 +9,8 @@ Layout:
   lengths      (B,) int32      live context per sequence
 
 A CPU tensor runs the plain version (`ref.paged_attention_ref`); a CUDA
-tensor launches the kernel on the current stream, or raises.  The wrapper
+tensor launches the kernel on the current stream, or raises (so does a call
+that autograd would record: the kernel has no backward).  The wrapper
 checks devices, dtypes, shapes and contiguity, never values: it reads
 nothing back from the device, so a decode step stays free of host syncs.
 The kernel is split-KV (flash-decoding): its grid and float32 scratch for
@@ -54,6 +55,16 @@ def _launcher():
     return fn
 
 
+def check_no_autograd(name: str, tensors: dict[str, torch.Tensor]):
+    """The kernels have no backward: a call that autograd would record raises
+    instead of returning an output detached from its inputs."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors.values()):
+        raise RuntimeError(
+            f"{name} has no backward: call it under torch.no_grad() or with "
+            "inputs that do not require grad (the training path runs the plain "
+            "attention, as the reference's loss does)")
+
+
 def check_cuda_inputs(tensors: dict[str, torch.Tensor], dtypes: dict[str, tuple]):
     """Device, dtype, contiguity and 16-byte alignment of kernel operands."""
     dev = next(iter(tensors.values())).device
@@ -86,9 +97,11 @@ def paged_attention(q, k_pages, v_pages, block_tables, lengths):
     if hd not in HEAD_DIMS:
         raise ValueError(f"head dim {hd} not in {HEAD_DIMS}")
     kv = (q.dtype,)
+    operands = {"q": q, "k_pages": k_pages, "v_pages": v_pages,
+                "block_tables": block_tables, "lengths": lengths}
+    check_no_autograd("paged_attention", operands)
     check_cuda_inputs(
-        {"q": q, "k_pages": k_pages, "v_pages": v_pages,
-         "block_tables": block_tables, "lengths": lengths},
+        operands,
         {"q": tuple(DTYPE_CODES), "k_pages": kv, "v_pages": kv,
          "block_tables": (torch.int32,), "lengths": (torch.int32,)})
     split_tokens, splits = split_plan(N, T)

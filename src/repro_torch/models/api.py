@@ -1,6 +1,7 @@
 """Unified model API (port of `repro/models/api.py`): build any assigned
-architecture and get its init / prefill / decode functions, its parameter
-shapes without materializing them, and concrete random input batches.
+architecture and get its init / loss / prefill / decode functions, its
+parameter shapes without materializing them, and concrete random input
+batches.
 """
 from __future__ import annotations
 
@@ -14,8 +15,9 @@ from repro_torch.models import encdec, lm
 from repro_torch.models.common import resolve_device
 from repro_torch.models.tensors import flatten_params
 
-# Sequences longer than this use blockwise attention in the reference; the
-# port's prefill always runs the flash kernel, which is blockwise already.
+# The loss of a sequence longer than this uses blockwise (online-softmax)
+# attention so the score matrix never materializes.  Prefill always runs the
+# flash kernel, which is blockwise already.
 CHUNKED_ATTN_THRESHOLD = 2048
 
 
@@ -38,17 +40,38 @@ class Model:
         `jax.eval_shape(init)`)."""
         return self.init(None, max_positions=max_positions, device="meta")
 
-    # --------------------------------------------------------------- prefill
-    def prefill(self, params, batch, *, cache_cap: int = 0):
-        if self.cfg.family == "audio":
-            return encdec.forward(params, self.cfg, batch["tokens"], batch["enc_frames"],
-                                  make_cache=True, cache_cap=cache_cap)
+    # ------------------------------------------------------------------ loss
+    def loss(self, params, batch, *, remat: bool = True,
+             moe_capacity_factor: float = 1.25,
+             moe_impl: str = "scatter") -> torch.Tensor:
+        """Next-token cross-entropy (a 0-d fp32 tensor) on the plain
+        attention route, which autograd differentiates."""
+        cfg = self.cfg
+        if cfg.family == "audio":
+            return encdec.loss(params, cfg, batch["tokens"], batch["enc_frames"],
+                               remat=remat)
         S = batch["tokens"].shape[1]
-        return lm.forward(
-            params, self.cfg, batch["tokens"],
+        return lm.lm_loss(
+            params, cfg, batch["tokens"],
             mrope_positions=batch.get("mrope_positions"),
             vision_embeds=batch.get("vision_embeds"),
-            make_cache=True, cache_cap=cache_cap or S)
+            attn_chunked=S > CHUNKED_ATTN_THRESHOLD,
+            remat=remat, moe_capacity_factor=moe_capacity_factor,
+            moe_impl=moe_impl)
+
+    # --------------------------------------------------------------- prefill
+    def prefill(self, params, batch, *, cache_cap: int = 0):
+        """Logits and decode caches of the prompt, through the flash kernel."""
+        cfg = self.cfg
+        if cfg.family == "audio":
+            return encdec.forward(params, cfg, batch["tokens"], batch["enc_frames"],
+                                  make_cache=True, cache_cap=cache_cap, remat=False)
+        S = batch["tokens"].shape[1]
+        return lm.forward(
+            params, cfg, batch["tokens"],
+            mrope_positions=batch.get("mrope_positions"),
+            vision_embeds=batch.get("vision_embeds"),
+            make_cache=True, cache_cap=cache_cap or S, remat=False)
 
     # ---------------------------------------------------------------- decode
     def decode(self, params, token, pos, cache):

@@ -6,11 +6,12 @@ embeddings (B, encoder_seq, d_model).  LayerNorm + GeLU MLP (+ biases) per
 the Whisper architecture; sinusoidal encoder positions, learned decoder
 positions; cross-attention K/V computed once at prefill and cached.
 
-Attention: the encoder's non-causal self-attention and the decoder's causal
-self-attention at prefill (equal query and key lengths, arange positions)
-run the flash kernel (`kernels.ops`); cross-attention (query and key
-lengths differ) and every decode step run the plain `attention_dense`, as
-the reference computes all of them.
+Attention: at prefill the encoder's non-causal self-attention and the
+decoder's causal self-attention (equal query and key lengths, arange
+positions) run the flash kernel (`kernels.ops`); cross-attention (query and
+key lengths differ), every decode step and the whole loss (``kernel_attention
+=False``: the kernel has no backward) run the plain `attention_dense`, as the
+reference computes all of them.
 """
 from __future__ import annotations
 
@@ -21,8 +22,9 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops as kops
 from repro_torch.models import common
 from repro_torch.models.common import F32, resolve_device, uniform_scaled
+from repro_torch.models import layers as L
 from repro_torch.models.layers import _out_proj, _proj
-from repro_torch.models.lm import _index_tree, stack_trees
+from repro_torch.models.lm import next_token_loss, stack_trees, unbind_tree
 
 
 def layer_norm(x, scale, bias, eps=1e-5):
@@ -87,13 +89,14 @@ def init_params(gen, cfg: ModelConfig, *, max_positions: int = 4096, device="cud
     }
 
 
-def _mha(p, xq, xkv, *, causal: bool):
-    """Self-attention at prefill (xq is xkv: the flash kernel) or
-    cross-attention (the plain dense attention).  Returns (y, (k, v))."""
+def _mha(p, xq, xkv, *, causal: bool, kernel_attention: bool = True):
+    """Self-attention at prefill (xq is xkv: the flash kernel, unless the
+    caller asks for the plain route) or cross-attention (the plain dense
+    attention).  Returns (y, (k, v))."""
     q = _proj(xq, p["wq"]) + p["bq"]
     k = _proj(xkv, p["wk"])
     v = _proj(xkv, p["wv"]) + p["bv"]
-    if xq is xkv:
+    if xq is xkv and kernel_attention:
         o = kops.flash_attention(q, k, v, causal=causal)
     else:
         o = common.attention_dense(q, k, v, causal=causal)
@@ -108,16 +111,18 @@ def _sinusoid_pos(S, d, dtype, device):
 
 
 def _layers(stacked, n):
-    return (_index_tree(stacked, i) for i in range(n))
+    layers = unbind_tree(stacked)
+    assert len(layers) == n
+    return layers
 
 
-def encode(params, cfg: ModelConfig, enc_frames):
+def encode(params, cfg: ModelConfig, enc_frames, *, kernel_attention: bool = True):
     """enc_frames: (B, Se, D) stub embeddings -> encoder hidden states."""
     x = enc_frames + _sinusoid_pos(enc_frames.shape[1], cfg.d_model, enc_frames.dtype,
                                    enc_frames.device)
     for p in _layers(params["enc_layers"], cfg.encoder_layers):
         h = layer_norm(x, p["ln1_s"], p["ln1_b"])
-        a, _ = _mha(p["attn"], h, h, causal=False)
+        a, _ = _mha(p["attn"], h, h, causal=False, kernel_attention=kernel_attention)
         x = x + a
         m = common.gelu_mlp(layer_norm(x, p["ln2_s"], p["ln2_b"]),
                             p["mlp"]["wi"], p["mlp"]["bi"], p["mlp"]["wo"], p["mlp"]["bo"])
@@ -126,11 +131,12 @@ def encode(params, cfg: ModelConfig, enc_frames):
 
 
 def _dec_layer(p, x, enc_out_or_kv, ctx_positions, *, cached_cross=False,
-               self_kv=None, kv_positions=None, kv_valid=None):
+               self_kv=None, kv_positions=None, kv_valid=None, kernel_attention=True):
     """One decoder layer. Returns (x, (self_k, self_v), (cross_k, cross_v))."""
     h = layer_norm(x, p["ln1_s"], p["ln1_b"])
-    if self_kv is None:  # prefill: positions are arange(S)
-        a, skv = _mha(p["self_attn"], h, h, causal=True)
+    if self_kv is None:  # prefill / loss: positions are arange(S)
+        a, skv = _mha(p["self_attn"], h, h, causal=True,
+                      kernel_attention=kernel_attention)
     else:
         # decode: caller provides updated cache (k, v) incl. current token
         q = _proj(h, p["self_attn"]["wq"]) + p["self_attn"]["bq"]
@@ -157,15 +163,24 @@ def _dec_layer(p, x, enc_out_or_kv, ctx_positions, *, cached_cross=False,
     return x + m, skv, ckv
 
 
+def _dec_body(p, x, enc, kernel_attention):
+    return _dec_layer(p, x, enc, None, kernel_attention=kernel_attention)
+
+
 def forward(params, cfg: ModelConfig, tokens, enc_frames, *, make_cache=False,
-            cache_cap=0):
-    """Teacher-forced decode over the full token sequence (prefill)."""
+            cache_cap=0, remat=True, kernel_attention=True):
+    """Teacher-forced decode over the full token sequence (train / prefill).
+    `remat` recomputes each decoder layer in backward (the reference's
+    `jax.checkpoint` of its decoder scan body; the encoder is not remat'd)."""
     B, S = tokens.shape
-    enc = encode(params, cfg, enc_frames)
+    enc = encode(params, cfg, enc_frames, kernel_attention=kernel_attention)
     x = params["embed"][tokens] + params["dec_pos"][:S][None]
     kvs = []
     for p in _layers(params["dec_layers"], cfg.num_layers):
-        x, skv, ckv = _dec_layer(p, x, enc, None)
+        if remat:
+            x, skv, ckv = L.remat(_dec_body, p, x, enc, kernel_attention)
+        else:
+            x, skv, ckv = _dec_body(p, x, enc, kernel_attention)
         if make_cache:
             kvs.append((skv, ckv))
     x = layer_norm(x, params["dec_ln_s"], params["dec_ln_b"])
@@ -238,3 +253,10 @@ def cache_specs(cfg: ModelConfig, batch: int, cap: int):
         "cross_k": ((Ld, batch, Se, H, hd), dt),
         "cross_v": ((Ld, batch, Se, H, hd), dt),
     }
+
+
+def loss(params, cfg: ModelConfig, tokens, enc_frames, **kw):
+    """Next-token cross-entropy of the teacher-forced decoder on the plain
+    attention route, mean over B*(S-1) tokens."""
+    logits, _ = forward(params, cfg, tokens, enc_frames, kernel_attention=False, **kw)
+    return next_token_loss(logits, tokens)

@@ -8,27 +8,45 @@ Each kind exposes:
   <kind>_decode(params, x, cache, cfg, ctx)      -> (y, new_cache)
   <kind>_cache_spec(cfg, batch, cap)             -> dict of (shape, dtype)
 
-Prefill attention goes through the flash kernel (`kernels.ops`), which
-computes the same function as the reference's `attention_dense` for
-prefill's arange positions.  The MoE MLP is the reference's scatter
-dispatch (`moe_forward`; its grouped and GShard dispatches are not ported).
-Sliding-window layers keep a ring cache of `kv_capacity` slots keyed by
-``pos % cap``.  The SSD scan and the RG-LRU recurrence are plain PyTorch, as
-the reference computes them outside any Pallas kernel.
+Attention takes one of two routes, chosen by `SeqCtx.kernel_attention`.
+Prefill goes through the flash kernel (`kernels.ops`), which computes the
+same function as the reference's `attention_dense` for prefill's arange
+positions.  The loss takes the reference's own plain attention
+(`attention_dense` at ``ctx.positions``, or `attention_chunked` when
+``ctx.attn_chunked``), which autograd differentiates: the kernels have no
+backward, in the reference as here.  The MoE MLP has the reference's three
+dispatches (`SeqCtx.moe_impl`): scatter (`moe_forward`), per-sequence
+grouped (`moe_forward_grouped`) and GShard one-hot einsums
+(`moe_forward_gshard`).  Sliding-window layers keep a ring cache of
+`kv_capacity` slots keyed by ``pos % cap``.  The SSD scan and the RG-LRU
+recurrence are plain PyTorch, as the reference computes them outside any
+Pallas kernel.
 """
 from __future__ import annotations
 
+import functools
 import math
 from dataclasses import dataclass
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops as kops
 from repro_torch.models import common
 from repro_torch.models.common import F32, rms_norm, uniform_scaled
+
+
+# The capacity factors the reference's callers give the MoE dispatch:
+# 1.25 in prefill and training (`lm.forward`'s default,
+# src/repro/models/lm.py:87) and 4.0 in every decode step
+# (`lm.decode_step`, src/repro/models/lm.py:109; the paged step,
+# src/repro/serving/engine.py:1783).
+PREFILL_CAPACITY_FACTOR = 1.25
+DECODE_CAPACITY_FACTOR = 4.0
 
 
 @dataclass
@@ -39,9 +57,17 @@ class SeqCtx:
     mrope_positions: Optional[torch.Tensor] = None  # (3, B, S) for M-RoPE
     make_cache: bool = False  # prefill: emit decode caches
     cache_cap: int = 0  # KV capacity for full-attention layers
+    # the attention route: the flash kernel (prefill) or the reference's
+    # plain attention at `positions` (the loss, under autograd)
+    kernel_attention: bool = True
     # positions == arange(S) for every row (the prefill case); the flash
-    # kernel's causal mask assumes it, so attention_forward requires it
+    # kernel's causal mask assumes it, so its route requires it
     arange_positions: bool = False
+    attn_chunked: bool = False  # plain route: blockwise attention (long sequences)
+    q_chunk: int = 512
+    kv_chunk: int = 1024
+    moe_capacity_factor: float = PREFILL_CAPACITY_FACTOR
+    moe_impl: str = "scatter"  # scatter | grouped | gshard
 
 
 def kv_capacity(cfg: ModelConfig, kind: str, cache_cap: int) -> int:
@@ -90,15 +116,23 @@ def _out_proj(o: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
 
 
 def attention_forward(p, x, cfg: ModelConfig, ctx: SeqCtx, kind: str):
-    """Full-sequence causal attention (prefill) through the flash kernel."""
-    if not ctx.arange_positions:
+    """Full-sequence causal attention: the flash kernel (prefill) or the
+    reference's plain attention (the loss), as `ctx.kernel_attention` says."""
+    if ctx.kernel_attention and not ctx.arange_positions:
         raise ValueError("prefill attention requires positions == arange(S)")
     q, k, v = _project_qkv(p, x, cfg)
     rope_pos = ctx.mrope_positions if cfg.mrope_sections else ctx.positions
     q = common.apply_rope(q, rope_pos, cfg.rope_theta, cfg.mrope_sections)
     k = common.apply_rope(k, rope_pos, cfg.rope_theta, cfg.mrope_sections)
     window = cfg.sliding_window if kind == "swa" else 0
-    o = kops.flash_attention(q, k, v, causal=True, window=window)
+    if ctx.kernel_attention:
+        o = kops.flash_attention(q, k, v, causal=True, window=window)
+    elif ctx.attn_chunked:
+        o = common.attention_chunked(q, k, v, causal=True, window=window,
+                                     q_chunk=ctx.q_chunk, kv_chunk=ctx.kv_chunk)
+    else:
+        o = common.attention_dense(q, k, v, causal=True, window=window,
+                                   q_positions=ctx.positions, kv_positions=ctx.positions)
     y = _out_proj(o, p["wo"])
 
     cache = None
@@ -199,6 +233,35 @@ def moe_capacity(tokens: int, k: int, experts: int, capacity_factor: float) -> i
     return max(8, -(-cap // 8) * 8)
 
 
+def route(xf: torch.Tensor, router: torch.Tensor, k: int):
+    """Top-k expert choice of each token, xf (T, D): fp32 router logits,
+    softmax, `torch.topk`, weights renormalised over the k choices.
+    `torch.topk` orders equal probabilities as it likes; the reference's
+    `jax.lax.top_k` puts the lower expert first, so the two agree wherever
+    the top-k probabilities do not tie.  Returns (w, idx), each (T, k)."""
+    probs = torch.softmax(xf.to(F32) @ router, dim=-1)
+    w, idx = torch.topk(probs, k, dim=-1)
+    return w / torch.clamp(w.sum(-1, keepdim=True), min=1e-9), idx
+
+
+def _slots(flat_e: torch.Tensor, experts: int, cap: int, dim: int):
+    """Slot of each (token, choice) pair in its expert: the running count of
+    earlier pairs routed there along `dim` (a cumsum over a scatter one-hot),
+    or `cap` once the expert is full.  Returns (slot, keep)."""
+    onehot = torch.zeros((*flat_e.shape, experts), dtype=torch.int32,
+                         device=flat_e.device)
+    onehot.scatter_(-1, flat_e[..., None], 1)
+    pos = (torch.cumsum(onehot, dim=dim) * onehot).sum(-1) - 1
+    keep = pos < cap
+    return torch.where(keep, pos, cap), keep
+
+
+def _experts(xe: torch.Tensor, p) -> torch.Tensor:
+    """SwiGLU of every expert over its slots, xe (E, N, D) -> (E, N, D)."""
+    h = F.silu(torch.bmm(xe, p["wg"])) * torch.bmm(xe, p["wu"])
+    return torch.bmm(h, p["wd"])
+
+
 def moe_forward(p, x, cfg: ModelConfig, capacity_factor: float):
     """Top-k expert dispatch with per-expert capacity (the reference's scatter
     dispatch).
@@ -209,36 +272,22 @@ def moe_forward(p, x, cfg: ModelConfig, capacity_factor: float):
     sliced off before the expert products).  Sync-free on CUDA: the
     capacity is a host integer, the one-hot is a scatter, and dispatch and
     combine are one `index_copy_` / `index_select` over linear slot ids.
-    `torch.topk` orders equal probabilities as it likes; the reference's
-    `jax.lax.top_k` puts the lower expert first, so the two agree wherever
-    the top-k probabilities do not tie.
     """
     B, S, D = x.shape
     E, k = cfg.num_experts, cfg.experts_per_token
     T = B * S
     xf = x.reshape(T, D)
-
-    logits = xf.to(common.F32) @ p["router"]
-    probs = torch.softmax(logits, dim=-1)
-    w, idx = torch.topk(probs, k, dim=-1)  # (T, k)
-    w = w / torch.clamp(w.sum(-1, keepdim=True), min=1e-9)
+    w, idx = route(xf, p["router"], k)  # (T, k)
 
     cap = moe_capacity(T, k, E, capacity_factor)
     flat_e = idx.reshape(-1)  # (T*k,)
-    onehot = torch.zeros((T * k, E), dtype=torch.int32, device=x.device)
-    onehot.scatter_(1, flat_e[:, None], 1)
-    pos = (torch.cumsum(onehot, dim=0) * onehot).sum(-1) - 1  # slot in expert
-    keep = pos < cap
-    slot = torch.where(keep, pos, cap)  # dropped pairs land in slot `cap`
+    slot, keep = _slots(flat_e, E, cap, dim=0)
     row = flat_e * (cap + 1) + slot  # row of the (E*(cap+1), D) buffer
 
     xr = xf[:, None, :].expand(T, k, D).reshape(T * k, D)
     buf = torch.zeros((E * (cap + 1), D), dtype=x.dtype, device=x.device)
     buf.index_copy_(0, row, xr)
-    xe = buf.view(E, cap + 1, D)[:, :cap]  # (E, cap, D)
-
-    h = F.silu(torch.bmm(xe, p["wg"])) * torch.bmm(xe, p["wu"])
-    ye = torch.bmm(h, p["wd"])  # (E, cap, D)
+    ye = _experts(buf.view(E, cap + 1, D)[:, :cap], p)  # (E, cap, D)
 
     ye_pad = torch.cat([ye, ye.new_zeros((E, 1, D))], dim=1).reshape(E * (cap + 1), D)
     y_tok = ye_pad.index_select(0, row)  # (T*k, D)
@@ -247,12 +296,105 @@ def moe_forward(p, x, cfg: ModelConfig, capacity_factor: float):
     return y.reshape(B, S, D)
 
 
-# The capacity factors the reference's serving callers give `moe_forward`:
-# 1.25 in prefill (`lm.forward`'s default, src/repro/models/lm.py:87) and
-# 4.0 in every decode step (`lm.decode_step`, src/repro/models/lm.py:109;
-# the paged step, src/repro/serving/engine.py:1783).
-PREFILL_CAPACITY_FACTOR = 1.25
-DECODE_CAPACITY_FACTOR = 4.0
+@torch.library.custom_op("repro_torch::moe_y", mutates_args=())
+def _moe_y(y: torch.Tensor) -> torch.Tensor:
+    """The GShard combine output, under a name a remat policy can save (the
+    reference's ``checkpoint_name(y, "moe_y")``): an identity op."""
+    return y.clone()
+
+
+_moe_y.register_fake(lambda y: torch.empty_like(y))
+_moe_y.register_autograd(lambda ctx, grad: grad)
+
+
+def _save_moe_y(ctx, op, *args, **kwargs):
+    """Per-unit remat policy: keep the named MoE combine output, recompute
+    every other op (the reference's ``save_only_these_names("moe_y")``)."""
+    if op is torch.ops.repro_torch.moe_y.default:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _requires_grad(tree) -> bool:
+    if isinstance(tree, dict):
+        return any(_requires_grad(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return any(_requires_grad(v) for v in tree)
+    return isinstance(tree, torch.Tensor) and tree.requires_grad
+
+
+def remat(fn, *args):
+    """`fn(*args)` with its activations recomputed in backward, saving only
+    the MoE combine outputs: `jax.checkpoint` with the reference's policy.
+    Where autograd records nothing (serving: grad off, or no input that
+    requires grad) `fn` just runs, as `jax.checkpoint` is a no-op unless
+    differentiated."""
+    if not (torch.is_grad_enabled() and _requires_grad(args)):
+        return fn(*args)
+    return checkpoint(fn, *args, use_reentrant=False,
+                      context_fn=functools.partial(create_selective_checkpoint_contexts,
+                                                   _save_moe_y))
+
+
+def moe_forward_gshard(p, x, cfg: ModelConfig, capacity_factor: float):
+    """GShard-style one-hot einsum dispatch and combine (the reference's
+    `moe_forward_gshard`): per-sequence capacity, (B, S, E, cap) dispatch
+    and combine tensors summed over the k choices (the reference's
+    expert-parallel sharding constraint comes with the distributed port).
+    An overflow slot `cap` gets an all-zero position row (`jax.nn.one_hot`
+    of an out-of-range index), built as a one-hot over cap + 1 slots with
+    the last sliced off.  The combine output is named for the remat policy
+    (`remat`)."""
+    B, S, D = x.shape
+    E, k = cfg.num_experts, cfg.experts_per_token
+    w, idx = route(x.reshape(B * S, D), p["router"], k)
+    w, idx = w.view(B, S, k), idx.view(B, S, k)
+
+    cap = moe_capacity(S, k, E, capacity_factor)
+    slot, _ = _slots(idx.reshape(B, S * k), E, cap, dim=1)  # (B, S*k)
+    onehot_e = torch.zeros((B, S, k, E), dtype=x.dtype, device=x.device)
+    onehot_e.scatter_(-1, idx[..., None], 1)
+    pos_oh = torch.zeros((B, S, k, cap + 1), dtype=x.dtype, device=x.device)
+    pos_oh.scatter_(-1, slot.view(B, S, k, 1), 1)
+    pos_oh = pos_oh[..., :cap]  # overflow -> zeros
+
+    disp = torch.einsum("bske,bskc->bsec", onehot_e, pos_oh)
+    # bske,bskc,bsk->bsec: each token's k experts differ, so one term of the
+    # sum over k is nonzero and folding w into the one-hot is exact
+    comb = torch.einsum("bske,bskc->bsec", onehot_e.to(F32) * w[..., None],
+                        pos_oh.to(F32)).to(x.dtype)
+
+    xe = torch.einsum("bsec,bsd->becd", disp, x)  # (B, E, cap, D)
+    ye = _experts(xe.transpose(0, 1).reshape(E, B * cap, D), p)
+    ye = ye.view(E, B, cap, D).transpose(0, 1)  # (B, E, cap, D)
+    y = torch.einsum("bsec,becd->bsd", comb, ye)
+    return _moe_y(y)
+
+
+def moe_forward_grouped(p, x, cfg: ModelConfig, capacity_factor: float):
+    """Grouped dispatch (the reference's `moe_forward_grouped`): each
+    sequence is its own dispatch group, with capacity from S.  The scatter
+    dispatch's sync-free idiom over a (E, B, cap + 1, D) buffer."""
+    B, S, D = x.shape
+    E, k = cfg.num_experts, cfg.experts_per_token
+    w, idx = route(x.reshape(B * S, D), p["router"], k)
+
+    cap = moe_capacity(S, k, E, capacity_factor)
+    flat_e = idx.reshape(B, S * k)
+    slot, keep = _slots(flat_e, E, cap, dim=1)  # (B, S*k)
+    b_idx = torch.arange(B, device=x.device)[:, None]
+    row = ((flat_e * B + b_idx) * (cap + 1) + slot).reshape(-1)
+
+    xr = x[:, :, None, :].expand(B, S, k, D).reshape(B * S * k, D)
+    buf = torch.zeros((E * B * (cap + 1), D), dtype=x.dtype, device=x.device)
+    buf.index_copy_(0, row, xr)
+    xe = buf.view(E, B, cap + 1, D)[:, :, :cap].reshape(E, B * cap, D)
+    ye = _experts(xe, p).view(E, B, cap, D)
+
+    ye_pad = torch.cat([ye, ye.new_zeros((E, B, 1, D))], dim=2)
+    y_tok = ye_pad.reshape(E * B * (cap + 1), D).index_select(0, row)
+    y_tok = y_tok * (w.reshape(-1, 1) * keep.reshape(-1, 1)).to(y_tok.dtype)
+    return y_tok.reshape(B, S, k, D).sum(dim=2)
 
 
 # ============================================================== transformer block
@@ -265,9 +407,17 @@ def init_block(gen, cfg: ModelConfig, kind: str, device):
     }
 
 
-def _mlp(p, h, cfg: ModelConfig, capacity_factor: float):
+def _moe_dispatch(pm, h, cfg: ModelConfig, ctx: SeqCtx, cf: float):
+    if ctx.moe_impl == "gshard":
+        return moe_forward_gshard(pm, h, cfg, cf)
+    if ctx.moe_impl == "grouped":
+        return moe_forward_grouped(pm, h, cfg, cf)
+    return moe_forward(pm, h, cfg, cf)
+
+
+def _mlp(p, h, cfg: ModelConfig, ctx: SeqCtx):
     if cfg.is_moe:
-        return moe_forward(p["mlp"], h, cfg, capacity_factor)
+        return _moe_dispatch(p["mlp"], h, cfg, ctx, ctx.moe_capacity_factor)
     return mlp_forward(p["mlp"], h)
 
 
@@ -276,7 +426,7 @@ def block_forward(p, x, cfg: ModelConfig, ctx: SeqCtx, kind: str):
                                  cfg, ctx, kind)
     x = x + a
     h = rms_norm(x, p["ln2"], cfg.norm_eps)
-    return x + _mlp(p, h, cfg, PREFILL_CAPACITY_FACTOR), cache
+    return x + _mlp(p, h, cfg, ctx), cache
 
 
 def block_decode(p, x, cache, cfg: ModelConfig, ctx: SeqCtx, kind: str):
@@ -284,7 +434,7 @@ def block_decode(p, x, cache, cfg: ModelConfig, ctx: SeqCtx, kind: str):
                                 cache, cfg, ctx, kind)
     x = x + a
     h = rms_norm(x, p["ln2"], cfg.norm_eps)
-    return x + _mlp(p, h, cfg, DECODE_CAPACITY_FACTOR), cache
+    return x + _mlp(p, h, cfg, ctx), cache
 
 
 # ================================================================== Mamba2 (SSD)

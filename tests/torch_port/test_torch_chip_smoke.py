@@ -221,3 +221,25 @@ def test_state_families_phase_rehearses_on_cpu(monkeypatch):
                          "recurrentgemma-9b long": {"paged_attention": 0,
                                                     "flash_attention": 2},
                          "mixtral-8x7b long": {"paged_attention": 0, "flash_attention": 6}}
+
+
+def test_train_phase_rehearses_on_cpu(monkeypatch, tmp_path, capsys):
+    """The [train] phase on the CPU at --smoke sizes: llama3.2-1b through the
+    launcher, checks (a)-(d) (peak memory and the profile are CUDA-only),
+    the checkpoint round trip, the MoE dispatches held against each other,
+    the launcher's CLI contract over every architecture, and (e) no kernel
+    launched."""
+    cs = load_chip_smoke()
+    monkeypatch.setattr(cs, "TRAIN_BATCH", 2)
+    monkeypatch.setattr(cs, "TRAIN_SEQ", 32)
+    monkeypatch.setattr(cs, "MOE_TRAIN_SEQ", 32)
+    monkeypatch.setattr(cs, "CKPT_DIR", tmp_path / "build" / "train_ckpt")
+    cs.train_phase("cpu", smoke=True)
+    out = capsys.readouterr().out
+    for line in ("(a) first loss", "(b) bf16 vs fp32", "(c) 20 steps on one batch",
+                 "(d) remat on vs off", "34 of 34 leaves bitwise equal",
+                 "scatter vs gshard", "grouped vs gshard", "resumed from step 6",
+                 "(e) kernel launches over the phase: {'paged_attention': 0, "
+                 "'flash_attention': 0}"):
+        assert line in out, line
+    assert not (tmp_path / "build" / "train_ckpt").exists()

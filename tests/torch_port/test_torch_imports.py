@@ -43,6 +43,8 @@ def test_port_imports_with_jax_blocked():
         "import repro_torch.serving.engine, repro_torch.serverless\n"
         "import repro_torch.serverless.gateway, repro_torch.serverless.fleet\n"
         "import repro_torch.core.cluster, repro_torch.launch.serve\n"
+        "import repro_torch.train.optimizer, repro_torch.train.data\n"
+        "import repro_torch.train.checkpoint, repro_torch.launch.train\n"
         "print('ok')\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,

@@ -263,3 +263,35 @@ def test_wrappers_reject_what_the_kernels_cannot_take(cuda_device):
         ops.paged_attention(q, kp, kp, tables.cpu(), lengths)
     with pytest.raises(ValueError):  # head dim the kernel has no instance for
         ops.flash_attention(*(torch.zeros((1, 8, 2, 48), device=cuda_device),) * 3)
+
+
+@pytest.mark.parametrize("needs_grad", ["q", "k", "v"])
+def test_flash_kernel_raises_under_autograd(cuda_device, needs_grad):
+    """The kernel has no backward: a call autograd would record raises
+    instead of returning an output detached from its inputs; the same call
+    under no_grad launches."""
+    rng = np.random.default_rng(5)
+    q, k, v = (randn(rng, s, "bfloat16", cuda_device)
+               for s in [(1, 64, 4, 64), (1, 64, 2, 64), (1, 64, 2, 64)])
+    dict(q=q, k=k, v=v)[needs_grad].requires_grad_()
+    n0 = ops.flash_attention.launches
+    with pytest.raises(RuntimeError, match="no backward"):
+        ops.flash_attention(q, k, v, causal=True)
+    assert ops.flash_attention.launches == n0
+    with torch.no_grad():
+        out = ops.flash_attention(q, k, v, causal=True)
+    assert ops.flash_attention.launches == n0 + 1 and not out.requires_grad
+
+
+def test_paged_kernel_raises_under_autograd(cuda_device):
+    rng = np.random.default_rng(6)
+    q, kp, vp, tables = paged_inputs(rng, 2, 8, 2, 64, 16, 4, "bfloat16", cuda_device)
+    lengths = torch.tensor([5, 40], dtype=torch.int32, device=cuda_device)
+    q.requires_grad_()
+    n0 = ops.paged_attention.launches
+    with pytest.raises(RuntimeError, match="no backward"):
+        ops.paged_attention(q, kp, vp, tables, lengths)
+    assert ops.paged_attention.launches == n0
+    with torch.no_grad():
+        ops.paged_attention(q, kp, vp, tables, lengths)
+    assert ops.paged_attention.launches == n0 + 1
