@@ -85,6 +85,18 @@ run outside a checkout of the repository):
    training launcher's CLI contract (a module run, a resume, every
    architecture at --smoke).
 
+12. `[distributed]`: the distributed path (`repro_torch.distributed`) on a
+   1x1 mesh of a one-rank NCCL group, llama3.2-1b at full width and depth:
+   `make_train_step` (B 8, S 512, bf16, remat on; its gradients against
+   `launch.train`'s, then 3 steps of each), `make_prefill_step` (B 4, S 512;
+   K2 through `local_map`, its launches counted; last logits against
+   `Model.prefill` and the plain attention), `make_serve_step` (8 tokens
+   over the prefill's 512-slot caches, against `Model.decode`), each
+   step's wall beside the undistributed path's; `compressed_grad_fn`
+   (int8 all-gather) against the exact gradient; and the dry-run
+   (``python -m repro_torch.launch.dryrun``, llama3.2-1b's three shapes on
+   the 16x16 mesh and train_4k on 2x16x16) in processes of its own.
+
 Each phase frees the page-locked weights it drew before the next draws its
 own, and every phase line prints the host's memory.
 
@@ -221,12 +233,14 @@ def check_kernels() -> dict:
     import torch.nn.functional as F
 
     from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import visible_pairs
     from repro_torch.kernels.paged_attention import split_plan
     from repro_torch.kernels.ref import flash_attention_ref, paged_attention_ref
 
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(0)
     rows = {}
+    main_args = {}  # the main path's shapes, for `dispatch_cost`
 
     # K1: (label, dtype, B, H, K, hd, T, N, lengths).  Timed: the main path's
     # decode shape (llama3.2-1b, lengths after prefill + decode) and one long
@@ -275,6 +289,8 @@ def check_kernels() -> dict:
                      f"{dt} B{B} H{H} K{K} hd{hd} T{T} N{N} lengths {list(lengths)}")
         if not label:
             continue
+        if label == "main":
+            main_args["paged_attention"] = args
         # yardstick only: SDPA over K/V gathered to dense beforehand (the
         # gather is not timed), masked by length
         q, kp, vp, tables, lens = args
@@ -356,6 +372,9 @@ def check_kernels() -> dict:
         ("mixtral-8x7b long", "bfloat16", 1, STATE_LONG["mixtral-8x7b"], 32, 8, 128,
          True, 4096),
         ("whisper-tiny", "bfloat16", 1, 1500, 6, 6, 64, False, 0),
+        # [distributed]'s prefill step: llama3.2-1b's prefill shape, each
+        # rank's heads through local_map (all 32 on the one-rank mesh)
+        ("distributed", "bfloat16", DIST_PREFILL[0], DIST_PREFILL[1], 32, 8, 64, True, 0),
     ]
     for label, dt, B, S, H, K, hd, causal, window in flash_cases:
         dtype = getattr(torch, dt)
@@ -369,6 +388,8 @@ def check_kernels() -> dict:
         err = _check("flash_attention", out, ref, dt, desc)
         if not label:
             continue
+        if label == "main":
+            main_args["flash_attention"] = (q, k, v, causal, window)
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
         masked = 0 < window < S  # a window no shorter than S masks nothing
         if masked:  # SDPA has no window: an explicit mask of the visible pairs
@@ -393,7 +414,57 @@ def check_kernels() -> dict:
                 "source": "src/repro_torch/csrc/flash_attention.cu",
                 "replaces": "src/repro/kernels/flash_attention.py:102",
                 "shape": SHAPE_NOTES[label], **row}
+    dispatch_cost(main_args)
     return rows
+
+
+def _host_us(fn, calls: int = 200, repeats: int = 5) -> float:
+    """Host time of one call of `fn` in microseconds: the least over
+    `repeats` of `calls` back-to-back calls that are not waited on (their
+    launches queue on the stream, so the device work is not in the time)."""
+    import torch
+
+    best = math.inf
+    for _ in range(repeats):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        best = min(best, time.perf_counter() - t0)
+        torch.cuda.synchronize()
+    return best / calls * 1e6
+
+
+def dispatch_cost(main_args: dict):
+    """Each kernel's host cost a call at the main path's shape: through its
+    `torch.library` operator (the route of fake and meta tensors), through
+    the bare launch, and through the wrapper the model calls (which launches
+    directly on a plain CUDA tensor)."""
+    import importlib
+
+    import torch
+
+    from repro_torch.kernels import ops
+
+    # the modules (the package's attributes of these names are the wrappers)
+    fa = importlib.import_module("repro_torch.kernels.flash_attention")
+    pa = importlib.import_module("repro_torch.kernels.paged_attention")
+
+    q, k, v, causal, window = main_args["flash_attention"]
+    args = main_args["paged_attention"]
+    cases = {
+        "paged_attention": (lambda: torch.ops.repro_torch.paged_attention(*args),
+                            lambda: pa._launch(*args), lambda: ops.paged_attention(*args)),
+        "flash_attention": (lambda: torch.ops.repro_torch.flash_attention(q, k, v, causal, window),
+                            lambda: fa._launch(q, k, v, causal, window),
+                            lambda: ops.flash_attention(q, k, v, causal=causal, window=window)),
+    }
+    for name, (op, bare, wrapper) in cases.items():
+        us = {what: _host_us(fn) for what, fn in
+              (("operator", op), ("bare launch", bare), ("wrapper", wrapper))}
+        log(f"[dispatch] {name} at the main path's shape, host time a call (least of 5 x 200 "
+            "calls not waited on): " + ", ".join(f"{w} {t:.2f} us" for w, t in us.items())
+            + f"; the operator's dispatch adds {us['operator'] - us['bare launch']:.2f} us")
 
 
 SHAPE_NOTES = {"main": "llama3.2-1b, main path (launches: main path)",
@@ -410,14 +481,10 @@ SHAPE_NOTES = {"main": "llama3.2-1b, main path (launches: main path)",
                "mixtral-8x7b long": "mixtral-8x7b (6 of 32 layers), [state-families] "
                                     "4200-token probe (launches: the probe's kernel path)",
                "whisper-tiny": "whisper-tiny encoder, [state-families] (launches: its "
-                               "requests there, encoder and decoder self-attention)"}
-
-
-def visible_pairs(S: int, causal: bool, window: int) -> int:
-    """(query, key) pairs attention computes: causal and windowed ones only."""
-    if not causal:
-        return sum(S - max(0, q - window + 1) for q in range(S)) if window else S * S
-    return sum(min(q + 1, window) if window else q + 1 for q in range(S))
+                               "requests there, encoder and decoder self-attention)",
+               "distributed": "llama3.2-1b, [distributed] prefill step on a 1x1 mesh "
+                              "(launches: the phase's, 2 calls of the step, K2 through "
+                              "local_map, and 1 of Model.prefill)"}
 
 
 def _bound(nbytes: int, flops: int, dtype: str) -> tuple[float, str]:
@@ -885,7 +952,9 @@ def router_choices(record=None, replay=None):
     """Record the expert choices of every MoE layer (`torch.topk` in
     `moe_forward`, the only top-k of a forward) into `record`, or make them
     the ones in `replay`, in call order, each weighted by the router's own
-    probabilities.  Only for holding a path against another: in bf16 a
+    probabilities; a replayed choice takes the leading dims of the
+    probabilities it replaces (the GShard dispatch routes (B, S, E), the
+    others (B*S, E)).  Only for holding a path against another: in bf16 a
     token whose k-th and (k+1)-th expert probabilities nearly tie may be
     routed either way by two paths that round differently."""
     import torch
@@ -895,7 +964,7 @@ def router_choices(record=None, replay=None):
 
     def topk(x, k, dim=-1, **kw):
         if calls is not None:
-            idx = next(calls)
+            idx = next(calls).reshape(*x.shape[:-1], k)
             return x.gather(dim, idx), idx
         out = real(x, k, dim=dim, **kw)
         record.append(out.indices.clone())
@@ -2036,6 +2105,260 @@ def train_phase(device="cuda", smoke=False):
         release_memory()
 
 
+# ------------------------------------------------------------ [distributed]
+DIST_ARCH = "llama3.2-1b"
+DIST_TRAIN = (8, 512)  # (B, S): make_train_step, remat on, bf16
+DIST_TRAIN_STEPS = 3
+DIST_PREFILL = (4, 512)  # (B, S): make_prefill_step, K2 through local_map
+DIST_SERVE_TOKENS = 8  # make_serve_step over the prefill's 512-slot caches
+DIST_SMOKE = {"train": (2, 32), "prefill": (2, 32), "tokens": 2}
+COMPRESS_TOL = 0.02  # relative error of the int8 gradient (tests/test_compress.py:65-66)
+DRYRUNS = (("--arch", DIST_ARCH, "--mesh", "single"),
+           ("--arch", DIST_ARCH, "--shape", "train_4k", "--mesh", "multi"))
+DRYRUN_SMOKE = (("--arch", DIST_ARCH, "--shape", "decode_32k", "--mesh", "single"),)
+
+
+def start_dryruns(tmp: str, smoke: bool) -> list:
+    """The dry-run in processes of its own (one default process group each:
+    a fake one of 512 ranks), started together so that they trace on the
+    host while the card runs the steps.  Returns (argv, out path, process)."""
+    procs = []
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    for i, args in enumerate(DRYRUN_SMOKE if smoke else DRYRUNS):
+        out = os.path.join(tmp, f"dryrun_{i}.json")
+        argv = [sys.executable, "-m", "repro_torch.launch.dryrun", *args, "--out", out]
+        procs.append((args, out, subprocess.Popen(argv, cwd=ROOT, env=env,
+                                                   stdout=subprocess.PIPE,
+                                                   stderr=subprocess.STDOUT, text=True)))
+    return procs
+
+
+def finish_dryruns(procs, timeout: float = 600) -> None:
+    """Wait for the dry-runs; each must exit 0.  Prints each row's
+    bottleneck, roofline terms, useful-FLOPs ratio and trace time."""
+    for args, out, proc in procs:
+        try:
+            text, _ = proc.communicate(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            text, _ = proc.communicate()
+        for line in text.splitlines():
+            if line.startswith(("[ ok ]", "[FAIL]", "done:")):
+                log(f"[distributed] dryrun {line}")
+        assert proc.returncode == 0, (args, proc.returncode, text[-3000:])
+        with open(out) as f:
+            rows = json.load(f)
+        for key, row in sorted(rows.items()):
+            if row.get("skipped"):
+                continue
+            log(f"[distributed] dryrun {key}: bottleneck {row['bottleneck']}, compute "
+                f"{row['compute_s'] * 1e3:.3f} ms, memory {row['memory_s'] * 1e3:.3f} ms, "
+                f"collective {row['collective_s'] * 1e3:.3f} ms, useful FLOPs ratio "
+                f"{row['useful_flops_ratio']:.4f}, per chip {row['hlo_flops_per_chip']:.6e} "
+                f"FLOP / {row['collective_bytes_per_chip']:.6e} collective B, args "
+                f"{row['memory_analysis']['argument_bytes']} B, trace_s {row['trace_s']}")
+
+
+def timed(dev, fn, *args, **kw):
+    """(fn(*args, **kw), host wall in ms ending in a device sync)."""
+    sync(dev)
+    t0 = time.perf_counter()
+    out = fn(*args, **kw)
+    sync(dev)
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def full(t):
+    """A DTensor's whole value (a plain tensor as it is)."""
+    from torch.distributed.tensor import DTensor
+
+    return t.full_tensor() if isinstance(t, DTensor) else t
+
+
+def bitwise(a, b) -> bool:
+    """Every leaf of `a` (DTensors or not) equals `b`'s to the bit."""
+    import torch
+
+    from repro_torch.models.tensors import flatten_params
+
+    return all(torch.equal(full(x), y) for (_, x), (_, y)
+               in zip(flatten_params(a), flatten_params(b)))
+
+
+def dist_train(cfg, model, mesh, params, dev, smoke):
+    """make_train_step against launch.train.train_step on the same params
+    and batch: the gradients first, then 3 steps of each."""
+    import torch
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.distributed import steps
+    from repro_torch.launch import train as launcher
+    from repro_torch.train.optimizer import AdamWConfig, init_opt_state
+
+    B, S = DIST_SMOKE["train"] if smoke else DIST_TRAIN
+    shape = ShapeConfig("distributed_train", S, B, "train")
+    gen = torch.Generator().manual_seed(17)
+    tokens = torch.randint(0, cfg.vocab_size, (B, S), generator=gen, dtype=torch.int32).to(dev)
+    batch = launcher.make_batch(cfg, tokens)
+    bundle = steps.make_train_step(cfg, mesh, shape, remat=True)
+    clone = functools.partial(tree_map, lambda t: t.clone())
+    d_params, d_opt, d_batch = bundle.place(clone(params), init_opt_state(params), batch)
+    with implicit_replication():
+        loss_d, grads_d = steps.loss_and_grads(model, d_params, d_batch, remat=True,
+                                               moe_impl="gshard")
+    loss_u, grads_u = launcher.loss_and_grads(model, params, batch, remat=True)
+    hold_grads("distributed", "make_train_step's gradients vs launch.train's",
+               tree_map(full, grads_d), grads_u, float(full(loss_d)), float(loss_u))
+    del grads_d, grads_u
+    u_params, u_opt, opt_cfg = clone(params), init_opt_state(params), AdamWConfig()
+    for step in range(DIST_TRAIN_STEPS):
+        (d_params, d_opt, loss_d), ms_d = timed(dev, bundle.fn, d_params, d_opt, d_batch)
+        (u_params, u_opt, loss_u, _), ms_u = timed(
+            dev, launcher.train_step, model, u_params, u_opt, batch, opt_cfg, remat=True)
+        rel = abs(float(full(loss_d)) - float(loss_u)) / max(1.0, abs(float(loss_u)))
+        log(f"[distributed] train step {step}: {ms_d:.3f} ms on the 1x1 mesh vs "
+            f"{ms_u:.3f} ms undistributed (B {B}, S {S}, remat on); loss "
+            f"{float(full(loss_d)):.6f} vs {float(loss_u):.6f} (rel {rel:.3e})")
+        assert rel <= TRAIN_LOSS_TOL, (step, rel)
+    errs = grad_errors(tree_map(full, d_params), u_params)
+    worst = max(errs, key=errs.get)
+    log(f"[distributed] params after {DIST_TRAIN_STEPS} steps: bitwise equal "
+        f"{bitwise(d_params, u_params)}, worst leaf {worst} rel L2 {errs[worst]:.3e}")
+    assert errs[worst] <= TRAIN_GRAD_TOL, (worst, errs[worst])
+
+
+def dist_serve(cfg, model, mesh, params, dev, smoke):
+    """make_prefill_step (K2 on each rank's heads) and make_serve_step
+    against Model.prefill / Model.decode and the plain attention."""
+    import torch
+
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.distributed import steps
+    from repro_torch.kernels import ops
+    from repro_torch.models import lm
+
+    B, S = DIST_SMOKE["prefill"] if smoke else DIST_PREFILL
+    gen = torch.Generator().manual_seed(18)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
+                                     dtype=torch.int32).to(dev)}
+    prefill = steps.make_prefill_step(cfg, mesh, ShapeConfig("distributed_prefill", S, B,
+                                                             "prefill"))
+    d_params, d_batch = prefill.place(params, batch)
+    before = ops.launch_counts()["flash_attention"]
+    (last_d, cache_d), ms_cold = timed(dev, prefill.fn, d_params, d_batch)
+    launches = ops.launch_counts()["flash_attention"] - before
+    # a second call, once DTensor's sharding propagation is cached
+    (last_d, cache_d), ms_d = timed(dev, prefill.fn, d_params, d_batch)
+    with torch.no_grad():
+        (logits_u, cache_u), ms_u = timed(dev, model.prefill, params, batch, cache_cap=S)
+        plain, _ = lm.forward(params, cfg, batch["tokens"], kernel_attention=False, remat=False)
+    last_u = logits_u[:, -1]
+    tol = TOL[cfg.dtype]
+    err_u, err_p = rel_err(full(last_d), last_u), rel_err(full(last_d), plain[:, -1])
+    log(f"[distributed] prefill step: {ms_cold:.3f} ms first, {ms_d:.3f} ms second on the "
+        f"1x1 mesh vs {ms_u:.3f} ms Model.prefill (B {B}, S {S}); K2 launches inside one "
+        f"call {launches}; last logits vs "
+        f"Model.prefill {err_u:.3e}, vs the plain attention {err_p:.3e} of scale (held {tol}); "
+        f"bitwise equal to Model.prefill {bool(torch.equal(full(last_d), last_u))}")
+    assert launches == cfg.num_layers if full(last_d).is_cuda else launches == 0, launches
+    assert err_u <= tol and err_p <= tol, (err_u, err_p)
+    del plain, logits_u
+    serve = steps.make_serve_step(cfg, mesh, ShapeConfig("distributed_serve", S, B, "decode"))
+    token = last_u.argmax(-1).to(torch.int32)
+    for i in range(DIST_SMOKE["tokens"] if smoke else DIST_SERVE_TOKENS):
+        pos = torch.full((B,), S + i, dtype=torch.int32, device=dev)
+        d_token, d_pos = serve.place(params, token, pos)[1:3]
+        (logits_d, cache_d), ms_d = timed(dev, serve.fn, d_params, d_token, d_pos, cache_d)
+        with torch.no_grad():
+            (logits_u, cache_u), ms_u = timed(dev, model.decode, params, token, pos, cache_u)
+        err = rel_err(full(logits_d), logits_u)
+        log(f"[distributed] serve step {i} (pos {S + i}, ring of {S}): {ms_d:.3f} ms on the "
+            f"1x1 mesh vs {ms_u:.3f} ms Model.decode; logits {err:.3e} of scale (held {tol}), "
+            f"bitwise equal {bool(torch.equal(full(logits_d), logits_u))}")
+        assert err <= tol, (i, err)
+        token = logits_u.argmax(-1).to(torch.int32)  # both runs take the same token
+
+
+def dist_compress(mesh, dev):
+    """compressed_grad_fn on the one-rank group: int8 on the wire, within
+    COMPRESS_TOL of the exact gradient, a nonzero residual."""
+    import torch
+
+    from repro_torch.distributed.compress import compressed_grad_fn, residual_like
+
+    gen = torch.Generator().manual_seed(19)
+    params = {"w1": (torch.randn(1024, 4096, generator=gen) * 0.03).to(dev),
+              "w2": (torch.randn(4096, 1024, generator=gen) * 0.03).to(dev)}
+    batch = {"x": torch.randn(256, 1024, generator=gen).to(dev),
+             "y": torch.randn(256, 1024, generator=gen).to(dev)}
+
+    def loss_fn(w, b):
+        return ((torch.tanh(b["x"] @ w["w1"]) @ w["w2"] - b["y"]) ** 2).mean()
+
+    (grads, residual, loss), ms = timed(dev, compressed_grad_fn(loss_fn, mesh, ("data",)),
+                                        params, batch, residual_like(params))
+    p = {k: v.clone().requires_grad_() for k, v in params.items()}
+    exact = dict(zip(p, torch.autograd.grad(loss_fn(p, batch), list(p.values()))))
+    rel = max(float((grads[k] - exact[k]).abs().max() / exact[k].abs().max()) for k in p)
+    res = float(sum(r.abs().sum() for r in residual.values()))
+    log(f"[distributed] compressed_grad_fn (int8 all-gather, 1 rank, MLP 1024x4096x1024): "
+        f"{ms:.3f} ms, max relative error {rel:.3e} (held {COMPRESS_TOL}), residual L1 "
+        f"{res:.4e}, loss {float(loss):.6f}")
+    assert rel < COMPRESS_TOL and res > 0, (rel, res)
+
+
+def distributed_phase(device="cuda", smoke=False) -> dict:
+    """`[distributed]`: the distributed steps on a 1x1 mesh of a one-rank
+    process group (NCCL on the card, gloo on the CPU; a FileStore, no
+    network) at llama3.2-1b's full width and depth, compressed gradients,
+    and the dry-run in its own processes.  Returns K2's launches there."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import build_model
+
+    before = ops.launch_counts()
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(0)  # the rank's device, before the mesh (NCCL)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_distributed_")
+    procs = start_dryruns(tmp, smoke)
+    dist.init_process_group("nccl" if dev.type == "cuda" else "gloo",
+                            store=dist.FileStore(os.path.join(tmp, "store"), 1),
+                            rank=0, world_size=1)
+    try:
+        mesh = make_local_mesh((1, 1), device_type=dev.type)
+        cfg = get_config(DIST_ARCH)
+        if smoke:
+            cfg = cfg.smoke()
+        model = build_model(cfg)
+        params = model.init(torch.Generator(device=dev).manual_seed(0), device=dev)
+        t0 = time.perf_counter()
+        dist_train(cfg, model, mesh, params, dev, smoke)
+        log(f"[distributed] train {time.perf_counter() - t0:.1f} s; {host_memory()}")
+        t0 = time.perf_counter()
+        dist_serve(cfg, model, mesh, params, dev, smoke)
+        log(f"[distributed] prefill and serve {time.perf_counter() - t0:.1f} s; {host_memory()}")
+        del params
+        dist_compress(mesh, dev)
+    finally:
+        dist.destroy_process_group()
+    t0 = time.perf_counter()
+    finish_dryruns(procs)
+    log(f"[distributed] dry-run waited {time.perf_counter() - t0:.1f} s more; {host_memory()}")
+    if dev.type == "cuda":
+        release_memory()
+    counts = {k: v - before[k] for k, v in ops.launch_counts().items()}
+    log(f"[distributed] kernel launches over the phase: {counts}")
+    return counts
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.parse_args(argv)
@@ -2107,6 +2430,9 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     train_phase()
     log(f"[phase] train {time.perf_counter() - t0:.1f} s; {host_memory()}")
+    t0 = time.perf_counter()
+    launches["distributed"] = distributed_phase()
+    log(f"[phase] distributed {time.perf_counter() - t0:.1f} s; {host_memory()}")
     for (name, label), row in rows.items():
         row["launches"] = counts[name] if label == "main" else launches[label][name]
     kernels = [{k: rows[key][k] for k in ("name", "route", "source", "replaces", "shape",

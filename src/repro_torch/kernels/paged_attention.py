@@ -16,7 +16,11 @@ nothing back from the device, so a decode step stays free of host syncs.
 The kernel is split-KV (flash-decoding): its grid and float32 scratch for
 the splits' partial softmax states come from `split_plan`, that is from the
 table's static shape alone.  One call makes two launches (the splits, then
-their combination); `paged_attention.launches` counts calls.
+their combination); `paged_attention.launches` counts calls.  A plain CUDA
+tensor launches directly; any other (a FakeTensor, a meta tensor) goes
+through the operator ``repro_torch::paged_attention``
+(`torch.library.custom_op`), whose fake gives the output's shape and
+launches nothing.
 """
 from __future__ import annotations
 
@@ -24,6 +28,7 @@ import ctypes
 import functools
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import build
 from repro_torch.kernels.ref import paged_attention_ref
@@ -79,29 +84,22 @@ def check_cuda_inputs(tensors: dict[str, torch.Tensor], dtypes: dict[str, tuple]
             raise ValueError(f"{name} must be 16-byte aligned")
 
 
-def paged_attention(q, k_pages, v_pages, block_tables, lengths):
-    """q: (B, H, hd) -> (B, H, hd). See module docstring for page layout."""
-    if q.device.type == "cpu":
-        return paged_attention_ref(q, k_pages, v_pages, block_tables, lengths)
-    if q.device.type != "cuda":
-        raise ValueError(f"no paged_attention for device {q.device}")
+def is_concrete_cuda(t: torch.Tensor) -> bool:
+    """A plain CUDA tensor with storage (not a DTensor, a FakeTensor or a
+    meta tensor): the wrappers launch on it directly, without the
+    operator's dispatch."""
+    return type(t) is torch.Tensor and t.device.type == "cuda"
+
+
+def _launch(q, k_pages, v_pages, block_tables, lengths):
+    """Check the operands and launch the kernel on the current stream."""
     B, H, hd = q.shape
-    P, T, K, hd_k = k_pages.shape
+    P, T, K, _ = k_pages.shape
     N = block_tables.shape[1]
-    if (tuple(v_pages.shape) != tuple(k_pages.shape) or hd_k != hd or H % K
-            or tuple(block_tables.shape) != (B, N) or tuple(lengths.shape) != (B,)):
-        raise ValueError(
-            f"shape mismatch: q {tuple(q.shape)}, pages {tuple(k_pages.shape)}/"
-            f"{tuple(v_pages.shape)}, tables {tuple(block_tables.shape)}, "
-            f"lengths {tuple(lengths.shape)}")
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"head dim {hd} not in {HEAD_DIMS}")
     kv = (q.dtype,)
-    operands = {"q": q, "k_pages": k_pages, "v_pages": v_pages,
-                "block_tables": block_tables, "lengths": lengths}
-    check_no_autograd("paged_attention", operands)
     check_cuda_inputs(
-        operands,
+        {"q": q, "k_pages": k_pages, "v_pages": v_pages, "block_tables": block_tables,
+         "lengths": lengths},
         {"q": tuple(DTYPE_CODES), "k_pages": kv, "v_pages": kv,
          "block_tables": (torch.int32,), "lengths": (torch.int32,)})
     split_tokens, splits = split_plan(N, T)
@@ -117,6 +115,51 @@ def paged_attention(q, k_pages, v_pages, block_tables, lengths):
         raise RuntimeError(f"paged_attention launch failed: cudaError {err}")
     paged_attention.launches += 1
     return out
+
+
+@torch.library.custom_op("repro_torch::paged_attention", mutates_args=())
+def _paged_op(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tensor,
+              block_tables: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
+    """The kernel as an operator (as `flash_attention`'s): its fake gives the
+    output's shape only and launches nothing."""
+    return _launch(q, k_pages, v_pages, block_tables, lengths)
+
+
+_paged_op.register_fake(lambda q, k_pages, v_pages, block_tables, lengths:
+                        torch.empty_like(q))
+
+
+@register_flop_formula(torch.ops.repro_torch.paged_attention)
+def _paged_flops(q_shape, k_shape, v_shape, tables_shape, lengths_shape, *args,
+                 **kwargs) -> int:
+    """Q.K^T and P.V over every slot the tables can hold (N pages of T
+    tokens): the lengths are device values, so a count from shapes takes
+    the table's capacity, an upper bound of the work."""
+    B, H, hd = q_shape
+    return 4 * B * H * hd * tables_shape[1] * k_shape[1]
+
+
+def paged_attention(q, k_pages, v_pages, block_tables, lengths):
+    """q: (B, H, hd) -> (B, H, hd). See module docstring for page layout."""
+    if q.device.type == "cpu":
+        return paged_attention_ref(q, k_pages, v_pages, block_tables, lengths)
+    if q.device.type not in ("cuda", "meta"):  # meta: shapes only, through the fake
+        raise ValueError(f"no paged_attention for device {q.device}")
+    B, H, hd = q.shape
+    P, T, K, hd_k = k_pages.shape
+    N = block_tables.shape[1]
+    if (tuple(v_pages.shape) != tuple(k_pages.shape) or hd_k != hd or H % K
+            or tuple(block_tables.shape) != (B, N) or tuple(lengths.shape) != (B,)):
+        raise ValueError(
+            f"shape mismatch: q {tuple(q.shape)}, pages {tuple(k_pages.shape)}/"
+            f"{tuple(v_pages.shape)}, tables {tuple(block_tables.shape)}, "
+            f"lengths {tuple(lengths.shape)}")
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"head dim {hd} not in {HEAD_DIMS}")
+    check_no_autograd("paged_attention", {"q": q, "k_pages": k_pages, "v_pages": v_pages})
+    if is_concrete_cuda(q):
+        return _launch(q, k_pages, v_pages, block_tables, lengths)
+    return torch.ops.repro_torch.paged_attention(q, k_pages, v_pages, block_tables, lengths)
 
 
 paged_attention.launches = 0

@@ -43,7 +43,7 @@ class Model:
     # ------------------------------------------------------------------ loss
     def loss(self, params, batch, *, remat: bool = True,
              moe_capacity_factor: float = 1.25,
-             moe_impl: str = "scatter") -> torch.Tensor:
+             moe_impl: str = "scatter", moe_ep_axis: str = "") -> torch.Tensor:
         """Next-token cross-entropy (a 0-d fp32 tensor) on the plain
         attention route, which autograd differentiates."""
         cfg = self.cfg
@@ -57,7 +57,7 @@ class Model:
             vision_embeds=batch.get("vision_embeds"),
             attn_chunked=S > CHUNKED_ATTN_THRESHOLD,
             remat=remat, moe_capacity_factor=moe_capacity_factor,
-            moe_impl=moe_impl)
+            moe_impl=moe_impl, moe_ep_axis=moe_ep_axis)
 
     # --------------------------------------------------------------- prefill
     def prefill(self, params, batch, *, cache_cap: int = 0):
@@ -89,6 +89,40 @@ class Model:
         if self.cfg.family == "audio":
             return encdec.cache_specs(self.cfg, batch, cap)
         return lm.cache_specs(self.cfg, batch, cap)
+
+    # ------------------------------------------------------------ input specs
+    def input_specs(self, shape: ShapeConfig) -> dict[str, Any]:
+        """``meta`` tensors standing in for every model input of this cell
+        (the reference's ShapeDtypeStructs).
+
+        train/prefill: the full-sequence batch.  decode: one new token plus the
+        populated cache (capacity = shape.seq_len, ring-bounded per layer kind).
+        """
+        cfg = self.cfg
+        B, S = shape.global_batch, shape.seq_len
+        dt = cfg.torch_dtype
+
+        def meta(shp, dtype):
+            return torch.empty(shp, dtype=dtype, device="meta")
+
+        if shape.kind in ("train", "prefill"):
+            specs: dict[str, Any] = {"tokens": meta((B, S), torch.int32)}
+            if cfg.family == "audio":
+                specs["enc_frames"] = meta((B, cfg.encoder_seq, cfg.d_model), dt)
+            if cfg.family == "vlm":
+                specs["vision_embeds"] = meta((B, cfg.vision_stub_patches, cfg.d_model), dt)
+                specs["mrope_positions"] = meta((3, B, S), torch.int32)
+            return specs
+
+        def leaves(spec: dict):
+            return {key: meta(shp, dtype) for key, (shp, dtype) in spec.items()}
+
+        # decode: KV context of length S already resident
+        specs = self.cache_specs(B, S)
+        cache = (leaves(specs) if cfg.family == "audio"
+                 else [tuple(leaves(unit) for unit in seg) for seg in specs])
+        return {"token": meta((B,), torch.int32), "pos": meta((B,), torch.int32),
+                "cache": cache}
 
     # ------------------------------------------------- concrete smoke batches
     def make_batch(self, gen: torch.Generator, shape: ShapeConfig, *,

@@ -96,11 +96,13 @@ def _mha(p, xq, xkv, *, causal: bool, kernel_attention: bool = True):
     q = _proj(xq, p["wq"]) + p["bq"]
     k = _proj(xkv, p["wk"])
     v = _proj(xkv, p["wv"]) + p["bv"]
-    if xq is xkv and kernel_attention:
-        o = kops.flash_attention(q, k, v, causal=causal)
-    else:
-        o = common.attention_dense(q, k, v, causal=causal)
-    return _out_proj(o, p["wo"]) + p["bo"], (k, v)
+
+    def attend(q, k, v):
+        if xq is xkv and kernel_attention:
+            return kops.flash_attention(q, k, v, causal=causal)
+        return common.attention_dense(q, k, v, causal=causal)
+
+    return _out_proj(L.run_attention(attend, q, k, v), p["wo"]) + p["bo"], (k, v)
 
 
 def _sinusoid_pos(S, d, dtype, device):
@@ -121,46 +123,51 @@ def encode(params, cfg: ModelConfig, enc_frames, *, kernel_attention: bool = Tru
     x = enc_frames + _sinusoid_pos(enc_frames.shape[1], cfg.d_model, enc_frames.dtype,
                                    enc_frames.device)
     for p in _layers(params["enc_layers"], cfg.encoder_layers):
-        h = layer_norm(x, p["ln1_s"], p["ln1_b"])
+        h = L.grad_placed(layer_norm(x, p["ln1_s"], p["ln1_b"]))
         a, _ = _mha(p["attn"], h, h, causal=False, kernel_attention=kernel_attention)
-        x = x + a
-        m = common.gelu_mlp(layer_norm(x, p["ln2_s"], p["ln2_b"]),
+        x = x + L.placed_like(a, x)
+        m = common.gelu_mlp(L.grad_placed(layer_norm(x, p["ln2_s"], p["ln2_b"])),
                             p["mlp"]["wi"], p["mlp"]["bi"], p["mlp"]["wo"], p["mlp"]["bo"])
-        x = x + m
-    return layer_norm(x, params["enc_ln_s"], params["enc_ln_b"])
+        x = x + L.placed_like(m, x)
+    return L.grad_placed(layer_norm(x, params["enc_ln_s"], params["enc_ln_b"]))
 
 
 def _dec_layer(p, x, enc_out_or_kv, ctx_positions, *, cached_cross=False,
                self_kv=None, kv_positions=None, kv_valid=None, kernel_attention=True):
     """One decoder layer. Returns (x, (self_k, self_v), (cross_k, cross_v))."""
-    h = layer_norm(x, p["ln1_s"], p["ln1_b"])
+    h = L.grad_placed(layer_norm(x, p["ln1_s"], p["ln1_b"]))
     if self_kv is None:  # prefill / loss: positions are arange(S)
         a, skv = _mha(p["self_attn"], h, h, causal=True,
                       kernel_attention=kernel_attention)
     else:
         # decode: caller provides updated cache (k, v) incl. current token
         q = _proj(h, p["self_attn"]["wq"]) + p["self_attn"]["bq"]
-        o = common.attention_dense(q, self_kv[0], self_kv[1], causal=False,
-                                   q_positions=ctx_positions, kv_positions=kv_positions,
-                                   kv_valid=kv_valid)
+
+        def attend(q, k, v, qp, kp, valid):
+            return common.attention_dense(q, k, v, causal=False, q_positions=qp,
+                                          kv_positions=kp, kv_valid=valid)
+
+        o = L.run_attention(attend, q, self_kv[0], self_kv[1], ctx_positions, kv_positions,
+                            kv_valid)
         a = _out_proj(o, p["self_attn"]["wo"]) + p["self_attn"]["bo"]
         skv = self_kv
-    x = x + a
+    x = x + L.placed_like(a, x)
 
-    h = layer_norm(x, p["ln2_s"], p["ln2_b"])
+    h = L.grad_placed(layer_norm(x, p["ln2_s"], p["ln2_b"]))
     if cached_cross:
         ck, cv = enc_out_or_kv
         q = _proj(h, p["cross_attn"]["wq"]) + p["cross_attn"]["bq"]
-        o = common.attention_dense(q, ck, cv, causal=False)
+        o = L.run_attention(lambda q, k, v: common.attention_dense(q, k, v, causal=False),
+                            q, ck, cv)
         c = _out_proj(o, p["cross_attn"]["wo"]) + p["cross_attn"]["bo"]
         ckv = (ck, cv)
     else:
         c, ckv = _mha(p["cross_attn"], h, enc_out_or_kv, causal=False)
-    x = x + c
+    x = x + L.placed_like(c, x)
 
-    m = common.gelu_mlp(layer_norm(x, p["ln3_s"], p["ln3_b"]),
+    m = common.gelu_mlp(L.grad_placed(layer_norm(x, p["ln3_s"], p["ln3_b"])),
                         p["mlp"]["wi"], p["mlp"]["bi"], p["mlp"]["wo"], p["mlp"]["bo"])
-    return x + m, skv, ckv
+    return x + L.placed_like(m, x), skv, ckv
 
 
 def _dec_body(p, x, enc, kernel_attention):
@@ -174,7 +181,7 @@ def forward(params, cfg: ModelConfig, tokens, enc_frames, *, make_cache=False,
     `jax.checkpoint` of its decoder scan body; the encoder is not remat'd)."""
     B, S = tokens.shape
     enc = encode(params, cfg, enc_frames, kernel_attention=kernel_attention)
-    x = params["embed"][tokens] + params["dec_pos"][:S][None]
+    x = L.embed_lookup(params["embed"], tokens) + params["dec_pos"][:S][None]
     kvs = []
     for p in _layers(params["dec_layers"], cfg.num_layers):
         if remat:
@@ -183,7 +190,7 @@ def forward(params, cfg: ModelConfig, tokens, enc_frames, *, make_cache=False,
             x, skv, ckv = _dec_body(p, x, enc, kernel_attention)
         if make_cache:
             kvs.append((skv, ckv))
-    x = layer_norm(x, params["dec_ln_s"], params["dec_ln_b"])
+    x = L.grad_placed(layer_norm(x, params["dec_ln_s"], params["dec_ln_b"]))
     logits = x @ params["embed"].T
 
     cache = None
@@ -211,14 +218,10 @@ def decode_step(params, cfg: ModelConfig, token, pos, cache):
     """One decoder token. token: (B,), pos: (B,), cache from forward().
     The new token's K/V go to ring slot ``pos % cap``; the input cache is
     untouched, as in the reference."""
-    B = token.shape[0]
-    x = params["embed"][token][:, None, :] + params["dec_pos"][pos][:, None, :]
+    x = (L.embed_lookup(params["embed"], token)[:, None, :]
+         + L.embed_lookup(params["dec_pos"], pos)[:, None, :])
     positions = pos[:, None]
-    cap = cache["self_k"].shape[2]
-    b_idx = torch.arange(B, device=token.device)
-    slot = (pos % cap).long()
-    kv_pos = cache["kv_pos"].clone()
-    kv_pos[b_idx, slot] = pos.to(torch.int32)  # shared across layers
+    kv_pos = L.slot_write(cache["kv_pos"], pos.to(torch.int32), pos)  # shared across layers
     kv_valid = kv_pos >= 0
 
     new_k, new_v = [], []
@@ -226,9 +229,8 @@ def decode_step(params, cfg: ModelConfig, token, pos, cache):
         hq = layer_norm(x, p["ln1_s"], p["ln1_b"])
         nk = _proj(hq, p["self_attn"]["wk"])
         nv = _proj(hq, p["self_attn"]["wv"]) + p["self_attn"]["bv"]
-        sk, sv = cache["self_k"][i].clone(), cache["self_v"][i].clone()
-        sk[b_idx, slot] = nk[:, 0]
-        sv[b_idx, slot] = nv[:, 0]
+        sk = L.slot_write(cache["self_k"][i], nk[:, 0], pos)
+        sv = L.slot_write(cache["self_v"][i], nv[:, 0], pos)
         x, _, _ = _dec_layer(p, x, (cache["cross_k"][i], cache["cross_v"][i]), positions,
                              cached_cross=True, self_kv=(sk, sv), kv_positions=kv_pos,
                              kv_valid=kv_valid)

@@ -20,7 +20,8 @@ grouped (`moe_forward_grouped`) and GShard one-hot einsums
 (`moe_forward_gshard`).  Sliding-window layers keep a ring cache of
 `kv_capacity` slots keyed by ``pos % cap``.  The SSD scan and the RG-LRU
 recurrence are plain PyTorch, as the reference computes them outside any
-Pallas kernel.
+Pallas kernel.  Over DTensors (`distributed.steps`) the ops that need it go
+through `models.sharded`.
 """
 from __future__ import annotations
 
@@ -31,13 +32,15 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops as kops
-from repro_torch.models import common
+from repro_torch.models import common, sharded
 from repro_torch.models.common import F32, rms_norm, uniform_scaled
+from repro_torch.models.sharded import grad_placed, placed_like  # noqa: F401  (encdec, lm)
 
 
 # The capacity factors the reference's callers give the MoE dispatch:
@@ -68,6 +71,7 @@ class SeqCtx:
     kv_chunk: int = 1024
     moe_capacity_factor: float = PREFILL_CAPACITY_FACTOR
     moe_impl: str = "scatter"  # scatter | grouped | gshard
+    moe_ep_axis: str = ""  # mesh axis for expert-parallel constraints (gshard)
 
 
 def kv_capacity(cfg: ModelConfig, kind: str, cache_cap: int) -> int:
@@ -125,14 +129,17 @@ def attention_forward(p, x, cfg: ModelConfig, ctx: SeqCtx, kind: str):
     q = common.apply_rope(q, rope_pos, cfg.rope_theta, cfg.mrope_sections)
     k = common.apply_rope(k, rope_pos, cfg.rope_theta, cfg.mrope_sections)
     window = cfg.sliding_window if kind == "swa" else 0
-    if ctx.kernel_attention:
-        o = kops.flash_attention(q, k, v, causal=True, window=window)
-    elif ctx.attn_chunked:
-        o = common.attention_chunked(q, k, v, causal=True, window=window,
-                                     q_chunk=ctx.q_chunk, kv_chunk=ctx.kv_chunk)
-    else:
-        o = common.attention_dense(q, k, v, causal=True, window=window,
-                                   q_positions=ctx.positions, kv_positions=ctx.positions)
+
+    def attend(q, k, v, positions):
+        if ctx.kernel_attention:
+            return kops.flash_attention(q, k, v, causal=True, window=window)
+        if ctx.attn_chunked:
+            return common.attention_chunked(q, k, v, causal=True, window=window,
+                                            q_chunk=ctx.q_chunk, kv_chunk=ctx.kv_chunk)
+        return common.attention_dense(q, k, v, causal=True, window=window,
+                                      q_positions=positions, kv_positions=positions)
+
+    o = run_attention(attend, q, k, v, ctx.positions)
     y = _out_proj(o, p["wo"])
 
     cache = None
@@ -142,8 +149,30 @@ def attention_forward(p, x, cfg: ModelConfig, ctx: SeqCtx, kind: str):
     return y, cache
 
 
+def run_attention(attend, q, k, v, *rows):
+    """`attend(q, k, v, *rows)`, per rank (`sharded.attention`) where q is a
+    DTensor."""
+    if isinstance(q, DTensor):
+        return sharded.attention(attend, q, k, v, *rows)
+    return attend(q, k, v, *rows)
+
+
+def slot_write(cache, value, pos):
+    """`cache` (B, C, ...) with each row's new `value` (B, ...) at ring slot
+    pos % C (B,); the input cache is untouched, as in the reference.  A
+    DTensor cache is written per rank (`sharded.slot_write`)."""
+    if isinstance(cache, DTensor):
+        return sharded.slot_write(cache, value, pos)
+    out = cache.clone()
+    out[torch.arange(cache.shape[0], device=cache.device),
+        (pos % cache.shape[1]).long()] = value
+    return out
+
+
 def _fill_kv_cache(k, v, positions, cap: int):
     """Scatter the last `cap` tokens into a ring cache keyed by pos % cap."""
+    if isinstance(k, DTensor):
+        return sharded.fill_kv_cache(_fill_kv_cache, k, v, positions, cap)
     B, S, K, hd = k.shape
     take = min(S, cap)
     kt, vt, pt = k[:, -take:], v[:, -take:], positions[:, -take:]
@@ -162,27 +191,26 @@ def attention_decode(p, x, cache, cfg: ModelConfig, ctx: SeqCtx, kind: str):
     """Single-token decode over the ring cache. x: (B, 1, D); ctx.positions:
     (B, 1) current pos.  Returns a new cache (the input cache is untouched,
     as in the reference)."""
-    B = x.shape[0]
     q, k, v = _project_qkv(p, x, cfg)
     pos = ctx.positions  # (B, 1)
     rope_pos = ctx.mrope_positions if cfg.mrope_sections else pos
     q = common.apply_rope(q, rope_pos, cfg.rope_theta, cfg.mrope_sections)
     k = common.apply_rope(k, rope_pos, cfg.rope_theta, cfg.mrope_sections)
 
-    cap = cache["k"].shape[1]
-    slot = (pos[:, 0] % cap).long()  # (B,)
-    b_idx = torch.arange(B, device=x.device)
-    kc, vc, kv_pos = cache["k"].clone(), cache["v"].clone(), cache["kv_pos"].clone()
-    kc[b_idx, slot] = k[:, 0]
-    vc[b_idx, slot] = v[:, 0]
-    kv_pos[b_idx, slot] = pos[:, 0].to(torch.int32)
+    kc = slot_write(cache["k"], k[:, 0], pos[:, 0])
+    vc = slot_write(cache["v"], v[:, 0], pos[:, 0])
+    kv_pos = slot_write(cache["kv_pos"], pos[:, 0].to(torch.int32), pos[:, 0])
 
     window = cfg.sliding_window if kind == "swa" else 0
     valid = kv_pos >= 0
     if window > 0:
         valid = valid & (kv_pos > pos[:, :1] - window)  # ring may hold stale slots
-    o = common.attention_dense(q, kc, vc, causal=False, q_positions=pos,
-                               kv_positions=kv_pos, kv_valid=valid)
+
+    def attend(q, k, v, pos, kv_pos, valid):
+        return common.attention_dense(q, k, v, causal=False, q_positions=pos,
+                                      kv_positions=kv_pos, kv_valid=valid)
+
+    o = run_attention(attend, q, kc, vc, pos, kv_pos, valid)
     y = _out_proj(o, p["wo"])
     return y, {"k": kc, "v": vc, "kv_pos": kv_pos}
 
@@ -234,23 +262,28 @@ def moe_capacity(tokens: int, k: int, experts: int, capacity_factor: float) -> i
 
 
 def route(xf: torch.Tensor, router: torch.Tensor, k: int):
-    """Top-k expert choice of each token, xf (T, D): fp32 router logits,
+    """Top-k expert choice of each token, xf (..., D): fp32 router logits,
     softmax, `torch.topk`, weights renormalised over the k choices.
     `torch.topk` orders equal probabilities as it likes; the reference's
     `jax.lax.top_k` puts the lower expert first, so the two agree wherever
-    the top-k probabilities do not tie.  Returns (w, idx), each (T, k)."""
+    the top-k probabilities do not tie.  Returns (w, idx), each (..., k)."""
     probs = torch.softmax(xf.to(F32) @ router, dim=-1)
     w, idx = torch.topk(probs, k, dim=-1)
     return w / torch.clamp(w.sum(-1, keepdim=True), min=1e-9), idx
 
 
+def _one_hot(idx: torch.Tensor, n: int, dtype: torch.dtype) -> torch.Tensor:
+    """One-hot of `idx` over `n` classes, as a comparison with an arange (an
+    elementwise op, which DTensor shards like `idx`; a scatter into a fresh
+    tensor has no DTensor sharding strategy)."""
+    return (idx[..., None] == torch.arange(n, device=idx.device)).to(dtype)
+
+
 def _slots(flat_e: torch.Tensor, experts: int, cap: int, dim: int):
     """Slot of each (token, choice) pair in its expert: the running count of
-    earlier pairs routed there along `dim` (a cumsum over a scatter one-hot),
+    earlier pairs routed there along `dim` (a cumsum over the one-hot),
     or `cap` once the expert is full.  Returns (slot, keep)."""
-    onehot = torch.zeros((*flat_e.shape, experts), dtype=torch.int32,
-                         device=flat_e.device)
-    onehot.scatter_(-1, flat_e[..., None], 1)
+    onehot = _one_hot(flat_e, experts, torch.int32)
     pos = (torch.cumsum(onehot, dim=dim) * onehot).sum(-1) - 1
     keep = pos < cap
     return torch.where(keep, pos, cap), keep
@@ -262,7 +295,7 @@ def _experts(xe: torch.Tensor, p) -> torch.Tensor:
     return torch.bmm(h, p["wd"])
 
 
-def moe_forward(p, x, cfg: ModelConfig, capacity_factor: float):
+def moe_forward(p, x, cfg: ModelConfig, capacity_factor: float, first_expert: int = 0):
     """Top-k expert dispatch with per-expert capacity (the reference's scatter
     dispatch).
 
@@ -270,11 +303,18 @@ def moe_forward(p, x, cfg: ModelConfig, capacity_factor: float):
     (T*k) order; pairs past an expert's capacity are dropped (their slot is
     `cap`, one spare row per expert that is written, never read back, and
     sliced off before the expert products).  Sync-free on CUDA: the
-    capacity is a host integer, the one-hot is a scatter, and dispatch and
-    combine are one `index_copy_` / `index_select` over linear slot ids.
+    capacity is a host integer, the one-hot is a comparison, and dispatch
+    and combine are one `index_copy_` / `index_select` over linear slot ids.
+
+    `p`'s expert weights may hold experts [first_expert, first_expert + El)
+    of the E (one rank's experts, `sharded.moe_forward`): pairs routed to
+    the others are dropped, so the output is this slice's share of the sum.
     """
+    if isinstance(x, DTensor):
+        return sharded.moe_forward(moe_forward, p, x, cfg, capacity_factor)
     B, S, D = x.shape
     E, k = cfg.num_experts, cfg.experts_per_token
+    El = p["wg"].shape[0]
     T = B * S
     xf = x.reshape(T, D)
     w, idx = route(xf, p["router"], k)  # (T, k)
@@ -282,14 +322,18 @@ def moe_forward(p, x, cfg: ModelConfig, capacity_factor: float):
     cap = moe_capacity(T, k, E, capacity_factor)
     flat_e = idx.reshape(-1)  # (T*k,)
     slot, keep = _slots(flat_e, E, cap, dim=0)
-    row = flat_e * (cap + 1) + slot  # row of the (E*(cap+1), D) buffer
+    if El < E:  # this rank's experts only: the others' pairs take a spare row
+        mine = (flat_e >= first_expert) & (flat_e < first_expert + El)
+        keep, slot = keep & mine, torch.where(mine, slot, cap)
+        flat_e = (flat_e - first_expert).clamp(0, El - 1)
+    row = flat_e * (cap + 1) + slot  # row of the (El*(cap+1), D) buffer
 
     xr = xf[:, None, :].expand(T, k, D).reshape(T * k, D)
-    buf = torch.zeros((E * (cap + 1), D), dtype=x.dtype, device=x.device)
+    buf = torch.zeros((El * (cap + 1), D), dtype=x.dtype, device=x.device)
     buf.index_copy_(0, row, xr)
-    ye = _experts(buf.view(E, cap + 1, D)[:, :cap], p)  # (E, cap, D)
+    ye = _experts(buf.view(El, cap + 1, D)[:, :cap], p)  # (El, cap, D)
 
-    ye_pad = torch.cat([ye, ye.new_zeros((E, 1, D))], dim=1).reshape(E * (cap + 1), D)
+    ye_pad = torch.cat([ye, ye.new_zeros((El, 1, D))], dim=1).reshape(El * (cap + 1), D)
     y_tok = ye_pad.index_select(0, row)  # (T*k, D)
     y_tok = y_tok * (w.reshape(-1, 1) * keep[:, None]).to(y_tok.dtype)
     y = y_tok.reshape(T, k, D).sum(dim=1)
@@ -305,6 +349,9 @@ def _moe_y(y: torch.Tensor) -> torch.Tensor:
 
 _moe_y.register_fake(lambda y: torch.empty_like(y))
 _moe_y.register_autograd(lambda ctx, grad: grad)
+
+
+sharded.register_identity_sharding(torch.ops.repro_torch.moe_y.default)
 
 
 def _save_moe_y(ctx, op, *args, **kwargs):
@@ -336,33 +383,37 @@ def remat(fn, *args):
                                                    _save_moe_y))
 
 
-def moe_forward_gshard(p, x, cfg: ModelConfig, capacity_factor: float):
+def moe_forward_gshard(p, x, cfg: ModelConfig, capacity_factor: float,
+                       ep_axis: Optional[str] = None):
     """GShard-style one-hot einsum dispatch and combine (the reference's
     `moe_forward_gshard`): per-sequence capacity, (B, S, E, cap) dispatch
-    and combine tensors summed over the k choices (the reference's
-    expert-parallel sharding constraint comes with the distributed port).
+    and combine tensors summed over the k choices.  On DTensors both are
+    placed for the expert products (`sharded.experts_placed`: P(None, None,
+    ep_axis, None) where `ep_axis` is named, the reference's
+    `with_sharding_constraint`); values do not change.
     An overflow slot `cap` gets an all-zero position row (`jax.nn.one_hot`
     of an out-of-range index), built as a one-hot over cap + 1 slots with
     the last sliced off.  The combine output is named for the remat policy
     (`remat`)."""
     B, S, D = x.shape
     E, k = cfg.num_experts, cfg.experts_per_token
-    w, idx = route(x.reshape(B * S, D), p["router"], k)
-    w, idx = w.view(B, S, k), idx.view(B, S, k)
+    # routed as (B, S, D), as the reference routes (the gradient of a
+    # (B*S, D) view of a batch-sharded DTensor would come back sharded over
+    # every mesh dim, which B cannot unflatten)
+    w, idx = route(x, p["router"], k)  # (B, S, k)
 
     cap = moe_capacity(S, k, E, capacity_factor)
     slot, _ = _slots(idx.reshape(B, S * k), E, cap, dim=1)  # (B, S*k)
-    onehot_e = torch.zeros((B, S, k, E), dtype=x.dtype, device=x.device)
-    onehot_e.scatter_(-1, idx[..., None], 1)
-    pos_oh = torch.zeros((B, S, k, cap + 1), dtype=x.dtype, device=x.device)
-    pos_oh.scatter_(-1, slot.view(B, S, k, 1), 1)
-    pos_oh = pos_oh[..., :cap]  # overflow -> zeros
+    onehot_e = _one_hot(idx, E, x.dtype)
+    pos_oh = _one_hot(slot.view(B, S, k), cap + 1, x.dtype)[..., :cap]  # overflow -> zeros
 
     disp = torch.einsum("bske,bskc->bsec", onehot_e, pos_oh)
     # bske,bskc,bsk->bsec: each token's k experts differ, so one term of the
     # sum over k is nonzero and folding w into the one-hot is exact
     comb = torch.einsum("bske,bskc->bsec", onehot_e.to(F32) * w[..., None],
                         pos_oh.to(F32)).to(x.dtype)
+    if isinstance(disp, DTensor):
+        disp, comb = sharded.experts_placed(disp, comb, p["wg"], ep_axis)
 
     xe = torch.einsum("bsec,bsd->becd", disp, x)  # (B, E, cap, D)
     ye = _experts(xe.transpose(0, 1).reshape(E, B * cap, D), p)
@@ -409,7 +460,7 @@ def init_block(gen, cfg: ModelConfig, kind: str, device):
 
 def _moe_dispatch(pm, h, cfg: ModelConfig, ctx: SeqCtx, cf: float):
     if ctx.moe_impl == "gshard":
-        return moe_forward_gshard(pm, h, cfg, cf)
+        return moe_forward_gshard(pm, h, cfg, cf, ep_axis=ctx.moe_ep_axis or None)
     if ctx.moe_impl == "grouped":
         return moe_forward_grouped(pm, h, cfg, cf)
     return moe_forward(pm, h, cfg, cf)
@@ -421,20 +472,26 @@ def _mlp(p, h, cfg: ModelConfig, ctx: SeqCtx):
     return mlp_forward(p["mlp"], h)
 
 
+def embed_lookup(embed, tokens):
+    """`embed[tokens]`, vocab-parallel (`sharded.embedding`) over a DTensor
+    table."""
+    return sharded.embedding(tokens, embed) if isinstance(embed, DTensor) else embed[tokens]
+
+
 def block_forward(p, x, cfg: ModelConfig, ctx: SeqCtx, kind: str):
-    a, cache = attention_forward(p["attn"], rms_norm(x, p["ln1"], cfg.norm_eps),
+    a, cache = attention_forward(p["attn"], grad_placed(rms_norm(x, p["ln1"], cfg.norm_eps)),
                                  cfg, ctx, kind)
-    x = x + a
-    h = rms_norm(x, p["ln2"], cfg.norm_eps)
-    return x + _mlp(p, h, cfg, ctx), cache
+    x = x + placed_like(a, x)
+    h = grad_placed(rms_norm(x, p["ln2"], cfg.norm_eps))
+    return x + placed_like(_mlp(p, h, cfg, ctx), x), cache
 
 
 def block_decode(p, x, cache, cfg: ModelConfig, ctx: SeqCtx, kind: str):
     a, cache = attention_decode(p["attn"], rms_norm(x, p["ln1"], cfg.norm_eps),
                                 cache, cfg, ctx, kind)
-    x = x + a
+    x = x + placed_like(a, x)
     h = rms_norm(x, p["ln2"], cfg.norm_eps)
-    return x + _mlp(p, h, cfg, ctx), cache
+    return x + placed_like(_mlp(p, h, cfg, ctx), x), cache
 
 
 # ================================================================== Mamba2 (SSD)
@@ -529,9 +586,12 @@ def _silu(x):
 
 
 def _ssd_project(p, x, cfg: ModelConfig):
-    z = x @ p["z_proj"]
-    xbc = x @ p["xbc_proj"]
-    dt = x @ p["dt_proj"]
+    # each column-parallel output's gradient placed as the output is, so the
+    # weights' gradients are products of shards (DTensor gathers xbc whole
+    # to split it into x, B and C, and would hand back a whole gradient)
+    z = grad_placed(x @ p["z_proj"])
+    xbc = grad_placed(x @ p["xbc_proj"])
+    dt = grad_placed(x @ p["dt_proj"])
     dt = F.softplus(dt.to(F32) + p["dt_bias"])  # (B,S,H)
     return z, xbc, dt
 
@@ -539,7 +599,7 @@ def _ssd_project(p, x, cfg: ModelConfig):
 def ssd_forward(p, x, cfg: ModelConfig, ctx: SeqCtx):
     B, S, _ = x.shape
     d_in, H, N, _ = _ssd_dims(cfg)
-    u = rms_norm(x, p["ln"], cfg.norm_eps)
+    u = grad_placed(rms_norm(x, p["ln"], cfg.norm_eps))
     z, xbc, dt = _ssd_project(p, u, cfg)
     xbc, conv_state = common.causal_conv1d(xbc, p["conv_w"])
     xbc = _silu(xbc)
@@ -562,7 +622,7 @@ def ssd_forward(p, x, cfg: ModelConfig, ctx: SeqCtx):
     y = rms_norm(y * F.silu(z.to(F32)).to(y.dtype), p["gnorm"], cfg.norm_eps)
     out = y @ p["out_proj"]
     cache = {"conv": conv_state, "state": state} if ctx.make_cache else None
-    return x + out, cache
+    return x + placed_like(out, x), cache
 
 
 def ssd_decode(p, x, cache, cfg: ModelConfig, ctx: SeqCtx):
@@ -585,7 +645,7 @@ def ssd_decode(p, x, cache, cfg: ModelConfig, ctx: SeqCtx):
     y = y.reshape(B, 1, d_in).to(x.dtype)
     y = rms_norm(y * F.silu(z.to(F32)).to(y.dtype), p["gnorm"], cfg.norm_eps)
     out = y @ p["out_proj"]
-    return x + out, {"conv": conv_state, "state": state}
+    return x + placed_like(out, x), {"conv": conv_state, "state": state}
 
 
 def ssd_cache_spec(cfg: ModelConfig, batch: int):
@@ -623,7 +683,7 @@ _RG_C = 8.0
 def _rglru_gates(p, xb):
     r = torch.sigmoid((xb @ p["wa"]).to(F32) + p["ba"])
     i = torch.sigmoid((xb @ p["wi"]).to(F32) + p["bi"])
-    log_a = _RG_C * r * F.logsigmoid(p["Lambda"])  # (B,S,W) negative
+    log_a = _RG_C * r * sharded.pointwise(F.logsigmoid, p["Lambda"])  # (B,S,W) negative
     a = torch.exp(log_a)
     mult = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-12))
     b = mult * i * xb.to(F32)
@@ -657,7 +717,7 @@ def linear_scan(a, b):
 
 
 def rglru_forward(p, x, cfg: ModelConfig, ctx: SeqCtx):
-    u = rms_norm(x, p["ln"], cfg.norm_eps)
+    u = grad_placed(rms_norm(x, p["ln"], cfg.norm_eps))
     xb = u @ p["wx"]
     xb, conv_state = common.causal_conv1d(xb, p["conv_w"])
     a, b = _rglru_gates(p, xb)
@@ -667,7 +727,7 @@ def rglru_forward(p, x, cfg: ModelConfig, ctx: SeqCtx):
     cache = None
     if ctx.make_cache:
         cache = {"conv": conv_state, "h": h[:, -1]}
-    return x + out, cache
+    return x + placed_like(out, x), cache
 
 
 def rglru_decode(p, x, cache, cfg: ModelConfig, ctx: SeqCtx):
@@ -678,7 +738,7 @@ def rglru_decode(p, x, cache, cfg: ModelConfig, ctx: SeqCtx):
     h = a[:, 0] * cache["h"] + b[:, 0]  # (B,W)
     gate = F.gelu((u @ p["wy"]).to(F32), approximate="tanh")
     out = (h[:, None] * gate).to(x.dtype) @ p["out"]
-    return x + out, {"conv": conv_state, "h": h}
+    return x + placed_like(out, x), {"conv": conv_state, "h": h}
 
 
 def rglru_cache_spec(cfg: ModelConfig, batch: int):

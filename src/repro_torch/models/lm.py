@@ -17,6 +17,7 @@ from __future__ import annotations
 from typing import Any, Optional
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
@@ -85,7 +86,7 @@ def init_params(gen: Optional[torch.Generator], cfg: ModelConfig, device="cuda")
 
 # -------------------------------------------------------------------- embedding
 def embed_tokens(params, cfg: ModelConfig, tokens, vision_embeds=None):
-    x = params["embed"][tokens]  # (B, S, D)
+    x = L.embed_lookup(params["embed"], tokens)  # (B, S, D)
     if vision_embeds is not None:
         # VLM stub frontend: the first `P` positions carry precomputed patch
         # embeddings
@@ -95,7 +96,7 @@ def embed_tokens(params, cfg: ModelConfig, tokens, vision_embeds=None):
 
 
 def unembed(params, cfg: ModelConfig, x):
-    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    x = L.grad_placed(rms_norm(x, params["final_norm"], cfg.norm_eps))
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
     return x @ head
 
@@ -113,7 +114,7 @@ def forward(params, cfg: ModelConfig, tokens, *, positions=None,
             mrope_positions=None, vision_embeds=None, make_cache=False,
             cache_cap=0, attn_chunked=False, remat=True,
             moe_capacity_factor=L.PREFILL_CAPACITY_FACTOR, moe_impl="scatter",
-            q_chunk=512, kv_chunk=1024, kernel_attention=True):
+            moe_ep_axis="", q_chunk=512, kv_chunk=1024, kernel_attention=True):
     """Full-sequence forward (train / prefill).  Returns (logits, caches|None);
     caches have the reference's layout, `caches[seg][unit_idx][key]` with a
     leading repeat axis.
@@ -131,7 +132,8 @@ def forward(params, cfg: ModelConfig, tokens, *, positions=None,
                    make_cache=make_cache, cache_cap=cache_cap or S,
                    kernel_attention=kernel_attention, arange_positions=arange,
                    attn_chunked=attn_chunked, q_chunk=q_chunk, kv_chunk=kv_chunk,
-                   moe_capacity_factor=moe_capacity_factor, moe_impl=moe_impl)
+                   moe_capacity_factor=moe_capacity_factor, moe_impl=moe_impl,
+                   moe_ep_axis=moe_ep_axis)
     x = embed_tokens(params, cfg, tokens, vision_embeds)
     caches = []
     for seg_params, (unit, _) in zip(params["segments"], cfg.segments):
@@ -156,7 +158,7 @@ def decode_step(params, cfg: ModelConfig, token, pos, caches, *,
     positions = pos[:, None]  # (B, 1)
     ctx = L.SeqCtx(positions=positions, mrope_positions=mrope_positions,
                    moe_capacity_factor=moe_capacity_factor)
-    x = params["embed"][token][:, None, :]  # (B, 1, D)
+    x = L.embed_lookup(params["embed"], token)[:, None, :]  # (B, 1, D)
 
     new_caches = []
     for seg_params, seg_cache, (unit, repeat) in zip(
@@ -195,7 +197,14 @@ def next_token_loss(logits, tokens):
     logits = logits[:, :-1].to(F32)
     targets = tokens[:, 1:].long()
     logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, targets[..., None])[..., 0]
+    if isinstance(logits, DTensor):
+        # DTensor's gather over a vocab-sharded dim leaves a masked partial
+        # sum that its reduction cannot take after the [..., 0]; a mask of
+        # the gold column summed over the vocab reduces one (B, S) tensor
+        hit = torch.arange(logits.shape[-1], device=logits.device) == targets[..., None]
+        gold = torch.where(hit, logits, 0.0).sum(-1)
+    else:
+        gold = torch.gather(logits, -1, targets[..., None])[..., 0]
     return (logz - gold).mean()
 
 

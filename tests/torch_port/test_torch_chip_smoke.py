@@ -243,3 +243,23 @@ def test_train_phase_rehearses_on_cpu(monkeypatch, tmp_path, capsys):
                  "'flash_attention': 0}"):
         assert line in out, line
     assert not (tmp_path / "build" / "train_ckpt").exists()
+
+
+def test_distributed_phase_rehearses_on_cpu():
+    """The [distributed] phase on the CPU at smoke sizes, in a process of its
+    own (its one-rank gloo group must not outlive it): the three steps on a
+    1x1 mesh against the undistributed path, compressed gradients, and the
+    dry-run subprocess on one cell (no kernel launches on the CPU)."""
+    from dist_helpers import run_snippet
+
+    code = ("import sys\n"
+            f"sys.path.insert(0, {str(ROOT)!r})\n"
+            "import chip_smoke\n"
+            "print('RESULT', chip_smoke.distributed_phase('cpu', smoke=True))\n")
+    out = run_snippet(code, timeout=600)
+    assert out.returncode == 0, out.stderr[-3000:]
+    for line in ("make_train_step's gradients vs launch.train's", "train step 2:",
+                 "bitwise equal True", "prefill step:", "serve step 1", "compressed_grad_fn",
+                 "dryrun llama3.2-1b|decode_32k|single: bottleneck",
+                 "kernel launches over the phase: {'paged_attention': 0, 'flash_attention': 0}"):
+        assert line in out.stdout, line

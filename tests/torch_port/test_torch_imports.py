@@ -45,6 +45,10 @@ def test_port_imports_with_jax_blocked():
         "import repro_torch.core.cluster, repro_torch.launch.serve\n"
         "import repro_torch.train.optimizer, repro_torch.train.data\n"
         "import repro_torch.train.checkpoint, repro_torch.launch.train\n"
+        "import repro_torch.launch.mesh, repro_torch.launch.dryrun\n"
+        "import repro_torch.distributed.sharding, repro_torch.distributed.steps\n"
+        "import repro_torch.distributed.compress, repro_torch.roofline.analysis\n"
+        "import repro_torch.roofline.report, repro_torch.models.sharded\n"
         "print('ok')\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,

@@ -19,7 +19,7 @@ COPIED = [
     "core/trace.py", "core/scheduler.py", "core/hostcache.py",
     "core/engine_api.py", "core/cluster.py", "core/__init__.py", "core/mcmdkp.py",
     "serverless/workload.py", "serverless/lifecycle.py", "serverless/__init__.py",
-    "configs/__init__.py", "models/__init__.py",
+    "configs/__init__.py", "models/__init__.py", "roofline/report.py",
 ] + sorted(f"configs/{p.name}" for p in (REF / "configs").glob("*.py")
            if p.name not in ("__init__.py", "base.py"))
 

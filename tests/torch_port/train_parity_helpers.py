@@ -29,7 +29,9 @@ class GradRouterReplay:
     """Records the expert ids of every reference top-k (an ordered debug
     callback, in forward order; a remat recomputation records again after
     them) and routes each port MoE layer, known by its router's storage, by
-    the next unused record on its first call and by the same one after."""
+    the next unused record on its first call and by the same one after,
+    shaped to the leading dims of the tokens it routes ((B, S) for the
+    GShard dispatch, (B*S,) for the others)."""
 
     def __init__(self, monkeypatch):
         self.ids = []
@@ -50,7 +52,8 @@ class GradRouterReplay:
                 ids = self.ids[len(self.by_layer)].reshape(-1, k)
                 self.by_layer[key] = torch.from_numpy(ids.astype(np.int64))
             idx = self.by_layer[key]
-            assert idx.shape[0] == xf.shape[0]
+            assert idx.numel() == xf[..., 0].numel() * k
+            idx = idx.reshape(*xf.shape[:-1], k)
             w = torch.softmax(xf.to(torch.float32) @ router, dim=-1).gather(-1, idx)
             return w / torch.clamp(w.sum(-1, keepdim=True), min=1e-9), idx
 
