@@ -44,22 +44,30 @@ run outside a checkout of the repository):
    spill to the persistent store; then the recovered engine serves a
    `Gateway` replay whose next-model hints promote spilled tensors while
    the current request runs;
-6. `[dedup]`: deepseek-7b and three fine-tune variants registered with
+6. `[trace]`: an `Engine` with a `Tracer` at llama3.2-1b's full width and a
+   host tier that holds nothing: a cold load, a store-tier reload, a
+   prefill and 3 fused decode steps; the span families, each phase nested
+   in its load, and the Chrome trace (build/trace/) loaded back;
+7. `[dedup]`: deepseek-7b and three fine-tune variants registered with
    `Engine.register_variant` (delta leaves: the layer-stacked wq and wo).
    With the base resident, each variant's cold load moves exactly its delta
    over h2d and its shared leaves are the base's device storage; its first
    logits hold against the plain attention and differ from the base's.
    Then a pool of the base, one delta and one request's KV serves them
    again, evicting deltas but no leaf a model in use reads;
-7. `[migration]`: a deepseek-7b decode handed from one `Engine` to another
+8. `[migration]`: a deepseek-7b decode handed from one `Engine` to another
    on the card (`migrate_out` after 8 tokens, `migrate_in` replaying the 4
    the source decoded after the snapshot) must give the source's logits
    bit for bit;
-8. `[families]`: the `Gateway` as in `[serverless]`, over qwen3-moe-30b-a3b
+9. `[families]`: the `Gateway` as in `[serverless]`, over qwen3-moe-30b-a3b
    (MoE, full width, 12 of its 48 layers) and qwen2-vl-7b (M-RoPE and
    vision patches, full width and depth), 512-token prompts, a seeded
    Poisson trace of 8 requests;
-9. `[state-families]`: the `Gateway` over the families the Engine serves
+10. `[dense]`: the `Gateway` as in `[serverless]` over yi-9b (GQA, G 8) and
+   codeqwen1.5-7b (MHA, G 1) at full width and depth, one pool that holds
+   either but not both: warm, full h2d and partial-reuse cold starts, K1
+   and K2 in every layer, first logits against the plain attention path;
+11. `[state-families]`: the `Gateway` over the families the Engine serves
    through its non-paged fallback, at full width: mamba2-2.7b (SSD),
    recurrentgemma-9b (RG-LRU + local MQA at head dim 256), whisper-tiny
    (encoder-decoder, 1500 encoder frames) and mixtral-8x7b (MoE + SWA
@@ -67,9 +75,13 @@ run outside a checkout of the repository):
    10 requests; then one prompt longer than the window per SWA model
    (recurrentgemma-9b 2200, mixtral 4200) straight through `Engine`, over a
    window-sized ring, each held against the plain attention path;
-10. `[launcher]`: ``python -m repro_torch.launch.serve --trace poisson
+12. `[launcher]`: ``python -m repro_torch.launch.serve --trace poisson
    --n-engines 2 --chaos`` at the launcher's own smoke sizes, on the card;
-11. `[train]`: the training path, which launches neither kernel (the loss
+13. `[examples]`: the four ported examples (``python -m
+   repro_torch.examples.<name>``: quickstart, serve_engine, serve_cluster,
+   train_100m) at the reference's sizes, started together on the card, each
+   exiting 0 with its own check;
+14. `[train]`: the training path, which launches neither kernel (the loss
    runs the plain attention, as the reference's does; both counters must
    stay 0).  llama3.2-1b at full width and depth through
    `repro_torch.launch.train.main` (B 8, S 512, bf16, remat off, 12 steps:
@@ -85,14 +97,16 @@ run outside a checkout of the repository):
    training launcher's CLI contract (a module run, a resume, every
    architecture at --smoke).
 
-12. `[distributed]`: the distributed path (`repro_torch.distributed`) on a
+15. `[distributed]`: the distributed path (`repro_torch.distributed`) on a
    1x1 mesh of a one-rank NCCL group, llama3.2-1b at full width and depth:
    `make_train_step` (B 8, S 512, bf16, remat on; its gradients against
    `launch.train`'s, then 3 steps of each), `make_prefill_step` (B 4, S 512;
    K2 through `local_map`, its launches counted; last logits against
    `Model.prefill` and the plain attention), `make_serve_step` (8 tokens
-   over the prefill's 512-slot caches, against `Model.decode`), each
-   step's wall beside the undistributed path's; `compressed_grad_fn`
+   over the prefill's 512-slot caches, sequence-sharded: the flash-decode
+   combine; against `Model.decode`), each step's wall beside the
+   undistributed path's; an elastic checkpoint round trip (DTensor leaves
+   saved whole, restored onto the prefill step's placements); `compressed_grad_fn`
    (int8 all-gather) against the exact gradient; and the dry-run
    (``python -m repro_torch.launch.dryrun``, llama3.2-1b's three shapes on
    the 16x16 mesh and train_4k on 2x16x16) in processes of its own.
@@ -278,6 +292,12 @@ def check_kernels() -> dict:
          (FAMILY_PROMPT + SERVERLESS_GEN,)),
         ("qwen2-vl-7b", "bfloat16", 1, 28, 4, 128, 16, 64,
          (FAMILY_PROMPT + SERVERLESS_GEN,)),
+        # the last decode step of [dense]: yi-9b (G 8) and codeqwen1.5-7b
+        # (G 1), hd 128, B 1, a 256-token prompt and 16 greedy tokens (last,
+        # so the paged cases above draw the inputs they drew before)
+        ("yi-9b", "bfloat16", 1, 32, 4, 128, 16, 64, (SERVERLESS_PROMPT + SERVERLESS_GEN,)),
+        ("codeqwen1.5-7b", "bfloat16", 1, 32, 32, 128, 16, 64,
+         (SERVERLESS_PROMPT + SERVERLESS_GEN,)),
     ]
     for label, dt, B, H, K, hd, T, N, lengths in paged_cases:
         dtype = getattr(torch, dt)
@@ -375,6 +395,9 @@ def check_kernels() -> dict:
         # [distributed]'s prefill step: llama3.2-1b's prefill shape, each
         # rank's heads through local_map (all 32 on the one-rank mesh)
         ("distributed", "bfloat16", DIST_PREFILL[0], DIST_PREFILL[1], 32, 8, 64, True, 0),
+        # the prefills of [dense]: B 1, S 256, hd 128
+        ("yi-9b", "bfloat16", 1, SERVERLESS_PROMPT, 32, 4, 128, True, 0),
+        ("codeqwen1.5-7b", "bfloat16", 1, SERVERLESS_PROMPT, 32, 32, 128, True, 0),
     ]
     for label, dt, B, S, H, K, hd, causal, window in flash_cases:
         dtype = getattr(torch, dt)
@@ -472,6 +495,8 @@ SHAPE_NOTES = {"main": "llama3.2-1b, main path (launches: main path)",
                "qwen3-moe-30b-a3b": "qwen3-moe-30b-a3b (12 of 48 layers), [families] "
                                     "(launches: its requests there)",
                "qwen2-vl-7b": "qwen2-vl-7b, [families] (launches: its requests there)",
+               "yi-9b": "yi-9b, [dense] (launches: its requests there)",
+               "codeqwen1.5-7b": "codeqwen1.5-7b, [dense] (launches: its requests there)",
                "recurrentgemma-9b": "recurrentgemma-9b, [state-families] (launches: its "
                                     "requests there)",
                "recurrentgemma-9b long": "recurrentgemma-9b, [state-families] 2200-token "
@@ -1167,6 +1192,152 @@ def families_phase(cfgs: dict, weights: dict, device="cuda") -> dict:
     with the families' trace and prompt)."""
     return serverless_phase(cfgs, weights, device, tag="families", trace_kw=FAMILY_TRACE,
                             prompt=FAMILY_PROMPT)
+
+
+DENSE_MODELS = ("yi-9b", "codeqwen1.5-7b")
+
+
+def dense_phase(cfgs: dict, weights: dict, device="cuda") -> dict:
+    """`[dense]`: the `Gateway` over yi-9b (GQA, G 8; the reference's own
+    serve_engine model) and codeqwen1.5-7b (MHA, G 1) at full width and
+    depth, as `[serverless]` serves its pair: one pool that holds either
+    model but not both, the seeded trace, every load's bytes, each model's
+    first request against the plain attention path, K1 and K2 in every
+    layer of every request."""
+    return serverless_phase(cfgs, weights, device, tag="dense")
+
+
+# ------------------------------------------------------------------ [trace]
+TRACE_ARCH = "llama3.2-1b"
+TRACE_DIR = ROOT / "build" / "trace"
+TRACE_BATCH = 2
+TRACE_STEPS = 3  # fused decode steps
+TRACE_PHASES = ("store.read", "h2d", "h2d.chunk", "init", "profile", "load", "prefill")
+
+
+def trace_phase(cfg, weights, device="cuda") -> dict:
+    """`[trace]`: an `Engine` with a `Tracer` whose host tier holds nothing
+    (every released leaf spills to the store tier): a cold load, the device
+    copies dropped, a store-tier reload, a prefill and 3 fused decode steps
+    (tests/test_fastpath.py's traced cold start, at full width).  Checks the
+    span families, that each phase nests in its load and that the Chrome
+    trace (written under build/trace) loads.  Returns the kernel launches."""
+    import torch
+
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.kernels import ops
+    from repro_torch.models import build_model
+    from repro_torch.obs import FlightRecorder, Tracer, write_chrome_trace
+    from repro_torch.serverless.gateway import greedy, settle
+    from repro_torch.serving.engine import Engine
+
+    dev, m = torch.device(device), cfg.name
+    tracer = Tracer(flight=FlightRecorder())
+    size = model_sizes({m: cfg})[m]
+    eng = Engine(size + KV_ROOM, device=dev, host_cache_bytes=0, tracer=tracer,
+                 engine_id="trace")
+    eng.register(m, cfg, init_fn=lambda: weights)
+    batch = build_model(cfg).make_batch(
+        torch.Generator().manual_seed(5),
+        ShapeConfig("trace", SERVERLESS_PROMPT, TRACE_BATCH, "prefill"), device=dev)
+    ops.reset_launch_counts()
+    eng.load(m)
+    eng.drop_device_copies(m)
+    eng.load(m)
+    inst = eng.start_instance(m)
+    tok = greedy(inst.prefill(batch))
+    for _ in range(TRACE_STEPS):
+        tok = greedy(eng.decode_many([(inst, tok)])[0])
+    settle(tok)
+    counts = ops.launch_counts()
+    inst.finish()
+    eng.close()
+
+    events = tracer.events()
+    by_name = {}
+    for ev in events:
+        by_name.setdefault(ev.name, []).append(ev)
+    missing = [n for n in TRACE_PHASES if n not in by_name]
+    assert not missing, f"cold-start phases never traced: {missing}"
+    assert len(by_name["decode.step"]) == TRACE_STEPS, len(by_name["decode.step"])
+    cold, reload_ = by_name["load"]
+    assert cold.track == reload_.track == "eng:trace", (cold.track, reload_.track)
+    (init,) = by_name["init"]
+    (read,) = by_name["store.read"]
+    assert cold.begin <= init.begin and init.end <= cold.end + 1e-6
+    assert reload_.begin <= read.begin and read.end <= reload_.end + 1e-6
+    assert read.args["bytes"] == size and read.args["retries"] == 0, read.args
+    assert cold.args["pred"] > 0
+    TRACE_DIR.mkdir(parents=True, exist_ok=True)
+    path = write_chrome_trace(events, str(TRACE_DIR / f"{m}.json"))
+    with open(path) as f:
+        doc = json.load(f)["traceEvents"]
+    spans = [e for e in doc if e["ph"] == "X"]
+    assert spans and all(e["dur"] >= 0 for e in spans) and any(e["ph"] == "M" for e in doc)
+    families = {n: len(evs) for n, evs in sorted(by_name.items())}
+    log(f"[trace] {m} at full width ({size} B): cold load {(cold.end - cold.begin) * 1e3:.3f} ms "
+        f"(init {(init.end - init.begin) * 1e3:.3f} ms inside it), store-tier reload "
+        f"{(reload_.end - reload_.begin) * 1e3:.3f} ms (store.read {read.args['bytes']} B in "
+        f"{(read.end - read.begin) * 1e3:.3f} ms inside it), prefill B {TRACE_BATCH} S "
+        f"{SERVERLESS_PROMPT}, {TRACE_STEPS} fused decode steps; launches {json.dumps(counts)}")
+    log(f"[trace] wrote {path}: {len(spans)} spans {json.dumps(families)}")
+    if dev.type == "cuda":
+        want = {"paged_attention": cfg.num_layers * TRACE_STEPS,
+                "flash_attention": cfg.num_layers}
+        assert counts == want, (counts, want)
+    return counts
+
+
+# --------------------------------------------------------------- [examples]
+EXAMPLE_CKPT = ROOT / "build" / "examples_ckpt"
+EXAMPLES = {  # module -> a line its own check prints
+    "quickstart": "transferred 0.0 MB, reuse=100%",
+    "serve_engine": "reload: 100% reused, 0 bytes transferred",
+    "serve_cluster": "tangram-conc",
+    "train_100m": "restored step",
+}
+
+
+def examples_phase(device="cuda", overrides=None):
+    """`[examples]`: the four ported examples (`python -m
+    repro_torch.examples.<name>`) at the reference's sizes, started together
+    on `device`; each must exit 0 and print its own check's line (quickstart:
+    the warm reload moves 0 bytes; serve_engine: the paged decode against
+    the dense path, then a 100% reload; serve_cluster: the policy table;
+    train_100m: 300 steps, a crash at 150 and the restore, its last loss
+    below its first).  `overrides` gives an example other arguments (a
+    train_100m cut short keeps its restore check, not the loss's fall)."""
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    procs = {}
+    args = {"train_100m": ("--ckpt-dir", str(EXAMPLE_CKPT)), **(overrides or {})}
+    for name in EXAMPLES:
+        argv = [sys.executable, "-m", f"repro_torch.examples.{name}", *args.get(name, ()),
+                "--device", device]
+        procs[name] = (time.perf_counter(), subprocess.Popen(
+            argv, cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True))
+    outs = {}
+    for name, (t0, proc) in procs.items():
+        text, _ = proc.communicate(timeout=600)
+        wall = time.perf_counter() - t0
+        lines = text.splitlines()
+        for line in lines[-4:]:
+            log(f"[examples] {name}: {line}")
+        log(f"[examples] {name} exited {proc.returncode} after {wall:.1f} s")
+        assert proc.returncode == 0, (name, text[-3000:])
+        assert any(EXAMPLES[name] in line for line in lines), (name, EXAMPLES[name])
+        outs[name] = lines
+    losses = [float(line.rsplit("loss", 1)[1]) for line in outs["train_100m"]
+              if line.startswith("[run")]
+    log(f"[examples] train_100m loss {losses[0]:.3f} -> {losses[-1]:.3f} over "
+        f"{len(losses)} printed steps")
+    if "train_100m" not in (overrides or {}):  # its 300 steps, past the warmup
+        assert losses[-1] < losses[0], losses
+    paged = next(line for line in outs["serve_engine"] if line.startswith("paged vs dense"))
+    log(f"[examples] serve_engine {paged}")
+    import shutil
+
+    shutil.rmtree(EXAMPLE_CKPT, ignore_errors=True)
 
 
 def state_configs() -> dict:
@@ -2280,6 +2451,43 @@ def dist_serve(cfg, model, mesh, params, dev, smoke):
         token = logits_u.argmax(-1).to(torch.int32)  # both runs take the same token
 
 
+def dist_elastic(cfg, model, mesh, params, dev):
+    """A checkpoint of the train step's placed parameters (each DTensor leaf
+    written whole by rank 0) restored onto the prefill step's placements
+    (`restore(..., shardings=)`): every leaf bitwise equal, on the card,
+    with the requested mesh and placements."""
+    import shutil
+
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.distributed import steps
+    from repro_torch.models.tensors import flatten_params, tree_structure, tree_unflatten
+    from repro_torch.train.checkpoint import restore, save
+
+    shape = ShapeConfig("distributed_elastic", 512, 8, "train")
+    placed = steps.make_train_step(cfg, mesh, shape).place(params)[0]
+    to = steps.make_prefill_step(cfg, mesh, ShapeConfig("distributed_elastic", 512, 4,
+                                                        "prefill"))
+    pairs = [(mesh, shd.placements(s, mesh)) for s in shd.spec_leaves(to.specs[0])]
+    directory = ROOT / "build" / "elastic_ckpt"
+    t0 = time.perf_counter()
+    save(str(directory), 1, placed)
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    got = restore(str(directory), placed,
+                  shardings=tree_unflatten(tree_structure(params), pairs))
+    restore_s = time.perf_counter() - t0
+    wrong = [n for (n, t), (m, pl) in zip(flatten_params(got), pairs)
+             if t.device_mesh is not m or tuple(t.placements) != pl or t.device.type != dev.type]
+    same = bitwise(got, params)
+    log(f"[distributed] elastic checkpoint of {len(pairs)} placed leaves "
+        f"({sum(t.numel() * t.element_size() for _, t in flatten_params(params))} B): "
+        f"save {save_s:.1f} s, restore onto the prefill step's placements {restore_s:.1f} s; "
+        f"bitwise equal {same}, leaves off their requested placement {wrong}")
+    shutil.rmtree(directory, ignore_errors=True)
+    assert same and not wrong, wrong
+
+
 def dist_compress(mesh, dev):
     """compressed_grad_fn on the one-rank group: int8 on the wire, within
     COMPRESS_TOL of the exact gradient, a nonzero residual."""
@@ -2345,10 +2553,15 @@ def distributed_phase(device="cuda", smoke=False) -> dict:
         t0 = time.perf_counter()
         dist_serve(cfg, model, mesh, params, dev, smoke)
         log(f"[distributed] prefill and serve {time.perf_counter() - t0:.1f} s; {host_memory()}")
+        t0 = time.perf_counter()
+        dist_elastic(cfg, model, mesh, params, dev)
+        log(f"[distributed] elastic checkpoint {time.perf_counter() - t0:.1f} s; "
+            f"{host_memory()}")
         del params
         dist_compress(mesh, dev)
     finally:
         dist.destroy_process_group()
+
     t0 = time.perf_counter()
     finish_dryruns(procs)
     log(f"[distributed] dry-run waited {time.perf_counter() - t0:.1f} s more; {host_memory()}")
@@ -2391,6 +2604,9 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     fleet_phase(cfgs, weights)
     log(f"[phase] fleet {time.perf_counter() - t0:.1f} s; {host_memory()}")
+    t0 = time.perf_counter()
+    trace_phase(cfgs[TRACE_ARCH], weights[TRACE_ARCH])
+    log(f"[phase] trace {time.perf_counter() - t0:.1f} s; {host_memory()}")
     # deepseek-7b's page-locked tree serves [dedup] and [migration] too
     big = weights.pop("deepseek-7b")
     del weights
@@ -2414,6 +2630,15 @@ def main(argv=None) -> int:
     del weights
     release_memory()
     t0 = time.perf_counter()
+    dcfgs = {m: get_config(m) for m in DENSE_MODELS}
+    weights = {m: draw_weights(cfg, 30 + seed) for seed, (m, cfg) in enumerate(dcfgs.items())}
+    log(f"[phase] dense weights drawn {time.perf_counter() - t0:.1f} s; {host_memory()}")
+    t0 = time.perf_counter()
+    launches.update(dense_phase(dcfgs, weights))
+    log(f"[phase] dense {time.perf_counter() - t0:.1f} s; {host_memory()}")
+    del weights
+    release_memory()
+    t0 = time.perf_counter()
     scfgs = state_configs()
     weights = {m: draw_weights(cfg, 20 + seed) for seed, (m, cfg) in enumerate(scfgs.items())}
     log(f"[phase] state-family weights drawn {time.perf_counter() - t0:.1f} s; "
@@ -2427,6 +2652,9 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     launcher_phase()
     log(f"[phase] launcher {time.perf_counter() - t0:.1f} s; {host_memory()}")
+    t0 = time.perf_counter()
+    examples_phase()
+    log(f"[phase] examples {time.perf_counter() - t0:.1f} s; {host_memory()}")
     t0 = time.perf_counter()
     train_phase()
     log(f"[phase] train {time.perf_counter() - t0:.1f} s; {host_memory()}")

@@ -7,8 +7,9 @@ fake) trees on the mesh as DTensors by those specs (the reference's
 `in_shardings`); the step runs the model's eager PyTorch on the DTensors,
 each op sharded by DTensor's propagation, and leaves its outputs placed as
 the reference's `out_shardings` say.  Ops with no DTensor sharding strategy
-run per rank in `local_map` regions (`models.layers`: the flash kernel K2,
-the prefill cache fill, the decode step's cache write).  Plain tensors the
+run per rank in `local_map` regions (`models.sharded`: the flash kernel K2,
+the prefill cache fill, the decode step's cache write and flash-decode
+combine, Mamba2's scan).  Plain tensors the
 model makes (positions, masks) count as replicated
 (`implicit_replication`).
 
@@ -178,8 +179,9 @@ def make_serve_step(cfg: ModelConfig, mesh, shape: ShapeConfig, *,
 
     seq_shard_kv=True shards the cache's sequence dim over the model axis
     (flash-decode placement): each rank writes the new token only into its
-    own slice of the ring; the attention over the sharded cache is
-    DTensor's own plan.  Returns (logits, cache)."""
+    own slice of the ring and attends over that slice, and the ranks
+    combine their softmax statistics (`models.sharded.flash_decode`).
+    Returns (logits, cache)."""
     model = build_model(cfg)
     p_shape = _params_shape(model, cfg, shape)
     specs = model.input_specs(shape)  # token, pos, cache

@@ -100,20 +100,13 @@ def _masked_softmax(scores: torch.Tensor) -> torch.Tensor:
     return torch.nan_to_num(probs, nan=0.0)
 
 
-def attention_dense(q, k, v, *, causal: bool, window: int = 0,
-                    q_positions=None, kv_positions=None, kv_valid=None):
-    """Reference dense attention with GQA, causal and sliding-window masking.
-
-    q: (B, S, H, hd); k, v: (B, T, K, hd).  positions default to arange.
-    kv_valid: optional (B, T) bool — entries that hold real tokens (decode ring).
-    Returns (B, S, H, hd) in q.dtype.
-    """
+def _masked_scores(q, k, *, causal: bool, window: int, q_positions, kv_positions, kv_valid):
+    """(B, K, G, S, T) fp32 scaled scores of q (B, S, H, hd) against k
+    (B, T, K, hd), -inf where masked (see `attention_dense`)."""
     B, S, H, hd = q.shape
     T, K = k.shape[1], k.shape[2]
-    G = H // K
     scale = 1.0 / math.sqrt(hd)
-    qq = q.reshape(B, S, K, G, hd)
-    scores = _gqa_scores(qq, k) * scale  # (B,K,G,S,T) fp32
+    scores = _gqa_scores(q.reshape(B, S, K, H // K, hd), k) * scale  # (B,K,G,S,T) fp32
 
     if q_positions is None:
         q_positions = torch.arange(S, dtype=torch.int32, device=q.device).expand(B, S)
@@ -128,10 +121,41 @@ def attention_dense(q, k, v, *, causal: bool, window: int = 0,
         mask = mask & (kp > qp - window)
     if kv_valid is not None:
         mask = mask & kv_valid[:, None, None, None, :]
-    scores = scores.masked_fill(~mask, float("-inf"))
+    return scores.masked_fill(~mask, float("-inf"))
+
+
+def attention_dense(q, k, v, *, causal: bool, window: int = 0,
+                    q_positions=None, kv_positions=None, kv_valid=None):
+    """Reference dense attention with GQA, causal and sliding-window masking.
+
+    q: (B, S, H, hd); k, v: (B, T, K, hd).  positions default to arange.
+    kv_valid: optional (B, T) bool — entries that hold real tokens (decode ring).
+    Returns (B, S, H, hd) in q.dtype.
+    """
+    B, S, H, hd = q.shape
+    scores = _masked_scores(q, k, causal=causal, window=window, q_positions=q_positions,
+                            kv_positions=kv_positions, kv_valid=kv_valid)
     probs = _masked_softmax(scores)  # fully-masked rows -> 0
     out = torch.einsum("bkgst,btkh->bskgh", probs.to(q.dtype), v)
     return out.reshape(B, S, H, hd)
+
+
+def attention_partial(q, k, v, *, causal: bool, window: int = 0,
+                      q_positions=None, kv_positions=None, kv_valid=None):
+    """`attention_dense` over one slice of the keys, left unnormalised: the
+    partials a flash-decode combine merges (`models.sharded`).  Returns
+    (o, m, l): o (B, S, H, hd) fp32, the product of exp(scores - m) with v;
+    m (B, S, H) fp32, each row's largest visible score (-inf where the
+    slice holds none); l (B, S, H) fp32, the sum of exp(scores - m) (0
+    there, and o 0 too)."""
+    B, S, H, hd = q.shape
+    scores = _masked_scores(q, k, causal=causal, window=window, q_positions=q_positions,
+                            kv_positions=kv_positions, kv_valid=kv_valid)
+    m = scores.amax(dim=-1)  # (B,K,G,S)
+    p = torch.exp(scores - torch.where(torch.isfinite(m), m, 0.0)[..., None])
+    o = torch.einsum("bkgst,btkh->bskgh", p.to(q.dtype), v).to(F32).reshape(B, S, H, hd)
+    rows = lambda t: t.permute(0, 3, 1, 2).reshape(B, S, H)  # noqa: E731  (B,K,G,S) -> (B,S,H)
+    return o, rows(m), rows(p.sum(dim=-1))
 
 
 def attention_chunked(q, k, v, *, causal: bool, window: int = 0,

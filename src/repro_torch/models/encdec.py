@@ -143,9 +143,9 @@ def _dec_layer(p, x, enc_out_or_kv, ctx_positions, *, cached_cross=False,
         # decode: caller provides updated cache (k, v) incl. current token
         q = _proj(h, p["self_attn"]["wq"]) + p["self_attn"]["bq"]
 
-        def attend(q, k, v, qp, kp, valid):
-            return common.attention_dense(q, k, v, causal=False, q_positions=qp,
-                                          kv_positions=kp, kv_valid=valid)
+        def attend(q, k, v, qp, kp, valid, attn=common.attention_dense):
+            return attn(q, k, v, causal=False, q_positions=qp, kv_positions=kp,
+                        kv_valid=valid)
 
         o = L.run_attention(attend, q, self_kv[0], self_kv[1], ctx_positions, kv_positions,
                             kv_valid)
@@ -157,8 +157,8 @@ def _dec_layer(p, x, enc_out_or_kv, ctx_positions, *, cached_cross=False,
     if cached_cross:
         ck, cv = enc_out_or_kv
         q = _proj(h, p["cross_attn"]["wq"]) + p["cross_attn"]["bq"]
-        o = L.run_attention(lambda q, k, v: common.attention_dense(q, k, v, causal=False),
-                            q, ck, cv)
+        o = L.run_attention(lambda q, k, v, attn=common.attention_dense:
+                            attn(q, k, v, causal=False), q, ck, cv)
         c = _out_proj(o, p["cross_attn"]["wo"]) + p["cross_attn"]["bo"]
         ckv = (ck, cv)
     else:

@@ -206,9 +206,9 @@ def attention_decode(p, x, cache, cfg: ModelConfig, ctx: SeqCtx, kind: str):
     if window > 0:
         valid = valid & (kv_pos > pos[:, :1] - window)  # ring may hold stale slots
 
-    def attend(q, k, v, pos, kv_pos, valid):
-        return common.attention_dense(q, k, v, causal=False, q_positions=pos,
-                                      kv_positions=kv_pos, kv_valid=valid)
+    def attend(q, k, v, pos, kv_pos, valid, attn=common.attention_dense):
+        return attn(q, k, v, causal=False, q_positions=pos, kv_positions=kv_pos,
+                    kv_valid=valid)
 
     o = run_attention(attend, q, kc, vc, pos, kv_pos, valid)
     y = _out_proj(o, p["wo"])
@@ -587,8 +587,8 @@ def _silu(x):
 
 def _ssd_project(p, x, cfg: ModelConfig):
     # each column-parallel output's gradient placed as the output is, so the
-    # weights' gradients are products of shards (DTensor gathers xbc whole
-    # to split it into x, B and C, and would hand back a whole gradient)
+    # weights' gradients are products of shards (xbc is gathered whole to
+    # split it into x, B and C, and would hand back a whole gradient)
     z = grad_placed(x @ p["z_proj"])
     xbc = grad_placed(x @ p["xbc_proj"])
     dt = grad_placed(x @ p["dt_proj"])
@@ -605,6 +605,12 @@ def ssd_forward(p, x, cfg: ModelConfig, ctx: SeqCtx):
     xbc = _silu(xbc)
     xs, Bm, Cm = torch.split(xbc, [d_in, N, N], dim=-1)
     xh = xs.reshape(B, S, H, cfg.ssm_head_dim)
+    if isinstance(dt, DTensor):
+        # x, dt and the scan by heads; B and C whole on every rank, their
+        # gradients (each rank's heads' partial sums) reduced where they
+        # arise, so the split's backward never reduce-scatters xbc's
+        xh = sharded.heads_like(xh, dt)
+        Bm, Cm = grad_placed(Bm), grad_placed(Cm)
     A = -torch.exp(p["A_log"])  # (H,)
     chunk = min(cfg.ssm_chunk, S)
     pad = (-S) % chunk
@@ -614,8 +620,9 @@ def ssd_forward(p, x, cfg: ModelConfig, ctx: SeqCtx):
         dt_p, Bm_p, Cm_p = (F.pad(t, (0, 0, 0, pad)) for t in (dt, Bm, Cm))
     else:
         xh_p, dt_p, Bm_p, Cm_p = xh, dt, Bm, Cm
-    y, state = ssd_chunked(xh_p * dt_p[..., None].to(xh_p.dtype), dt_p * A, Bm_p, Cm_p,
-                           chunk)
+    scan_in = (xh_p * dt_p[..., None].to(xh_p.dtype), dt_p * A, Bm_p, Cm_p)
+    y, state = (sharded.ssd_scan(ssd_chunked, *scan_in, chunk) if isinstance(dt, DTensor)
+                else ssd_chunked(*scan_in, chunk))
     y = y[:, :S]
     y = y + p["D"][:, None].to(y.dtype) * xh
     y = y.reshape(B, S, d_in)
@@ -632,8 +639,11 @@ def ssd_decode(p, x, cache, cfg: ModelConfig, ctx: SeqCtx):
     z, xbc, dt = _ssd_project(p, u, cfg)  # S = 1
     xbc, conv_state = common.causal_conv1d(xbc, p["conv_w"], state=cache["conv"])
     xbc = _silu(xbc)
-    xs, Bm, Cm = torch.split(xbc[:, 0], [d_in, N, N], dim=-1)
-    xh = xs.reshape(B, H, cfg.ssm_head_dim).to(F32)
+    xs, Bm, Cm = torch.split(xbc, [d_in, N, N], dim=-1)
+    xh = xs.reshape(B, 1, H, cfg.ssm_head_dim)
+    if isinstance(dt, DTensor):
+        xh = sharded.heads_like(xh, dt)
+    xh, Bm, Cm = xh[:, 0].to(F32), Bm[:, 0], Cm[:, 0]
     dt1 = dt[:, 0]  # (B, H)
     A = -torch.exp(p["A_log"])
     dA = torch.exp(dt1 * A)  # (B, H)
@@ -681,8 +691,9 @@ _RG_C = 8.0
 
 
 def _rglru_gates(p, xb):
-    r = torch.sigmoid((xb @ p["wa"]).to(F32) + p["ba"])
-    i = torch.sigmoid((xb @ p["wi"]).to(F32) + p["bi"])
+    xg = sharded.batch_only(xb)  # the square gates contract over the whole width
+    r = torch.sigmoid((xg @ p["wa"]).to(F32) + p["ba"])
+    i = torch.sigmoid((xg @ p["wi"]).to(F32) + p["bi"])
     log_a = _RG_C * r * sharded.pointwise(F.logsigmoid, p["Lambda"])  # (B,S,W) negative
     a = torch.exp(log_a)
     mult = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-12))

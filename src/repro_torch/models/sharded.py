@@ -5,9 +5,10 @@ DTensor, so the serving and training paths on plain tensors never reach it.
 Ops with no DTensor sharding strategy run per rank in `local_map` regions:
 every attention route (the flash kernel K2 is a custom op; the plain
 attention's (B, S, K, G, hd) view of q has no strategy where K does not
-divide the model axis), the prefill cache fill and the decode step's slot
-write (index writes), the scatter MoE dispatch, the vocab-parallel
-embedding and `log_sigmoid`'s backward.  The residual stream takes
+divide the model axis), the flash-decode combine over a sequence-sharded
+cache, the prefill cache fill and the decode step's slot write (index
+writes), the scatter MoE dispatch, Mamba2's chunked scan by heads, the
+vocab-parallel embedding and `log_sigmoid`'s backward.  The residual stream takes
 Megatron's f / g placements (`placed_like`, `grad_placed`), and the GShard
 dispatch the experts' sharding (`experts_placed`).  Each departure from the
 reference's GSPMD partitioning is listed in ROADMAP queue 3.
@@ -97,18 +98,19 @@ def attention(attend, q, k, v, *rows):
     rows and query heads (`local_map`).  `rows` are per-row tensors
     (positions, validity masks), which follow q's batch shards.
 
-    - A sharded sequence or head dim, or a partial sum, is first
-      redistributed to whole heads and whole sequences: attention over a
-      slice of hd is wrong (the head-dim fallback of
-      `distributed.sharding`, where neither H nor K divides the model axis,
-      shards hd), and a sequence-sharded decode cache (`seq_shard_kv`) is
-      gathered here (a flash-decode combine of partial softmax statistics
-      is not written).
+    - A sequence-sharded decode cache (`seq_shard_kv`) stays where it is:
+      `flash_decode` combines each rank's partial softmax statistics.
+    - Otherwise a sharded head dim, or a partial sum, is first
+      redistributed to whole heads: attention over a slice of hd is wrong
+      (the head-dim fallback of `distributed.sharding`, where neither H
+      nor K divides the model axis, shards hd).
     - Megatron-GQA: where Q heads are sharded and KV heads replicated, a
       rank holds H/tp query heads and every KV head; its local call takes
       the KV heads of its own query-head range (global query head h reads
       global KV head h // G, not its local index), and the gradient of the
       replicated K and V is the sum of every rank's."""
+    if any(p == Shard(1) for p in k.placements):
+        return flash_decode(attend, q, k, v, *rows)
     mesh = q.device_mesh
     G = q.shape[2] // k.shape[2]
     q = _keep(q, (0, 2))
@@ -139,6 +141,55 @@ def attention(attend, q, k, v, *rows):
     return local_map(local, out_placements=list(q.placements),
                      in_placements=(q.placements, k.placements, v.placements, *row_pl),
                      in_grad_placements=(q.placements, kv_grad, kv_grad, *row_pl),
+                     device_mesh=mesh)(q, k, v, *rows)
+
+
+def flash_decode(attend, q, k, v, *rows):
+    """Attention over a sequence-sharded cache (k, v (B, T, K, hd) with T
+    sharded, `seq_shard_kv`), as GSPMD partitions the reference's serve
+    step: each rank takes every query head of its batch rows (q gathered
+    whole over the sequence-sharded mesh dims: (B, 1, H, hd) is small)
+    against its own slice of cache slots and validity rows, giving its row
+    max m, its sum l of exp(score - m) and its unnormalised P.V
+    (`attend(..., attn=common.attention_partial)`).  The combine reduces
+    only those: an all-reduce-max of m, each rank's l and P.V rescaled by
+    exp(m - max), one all-reduce-sum of both, and a division.  A row no
+    rank can see stays 0; a rank whose slice holds no live slot adds 0.
+    `rows` are per-row tensors: those as long as the cache ((B, T): slot
+    positions, validity) follow its slots, the others (query positions) its
+    batch rows.  Runs without autograd (the serve step)."""
+    from torch.distributed import _functional_collectives as funcol
+
+    from repro_torch.models.common import attention_partial
+
+    mesh = k.device_mesh
+    k = _keep(k, (0, 1))
+    v = _placed(v, k.placements)
+    batch_pl = tuple(p if p == Shard(0) else Replicate() for p in k.placements)
+    q = _placed(q, batch_pl)
+    T = k.shape[1]
+    rows = [_keep(r, (0, 1), like=k.placements) if r.ndim == 2 and r.shape[1] == T
+            else _keep(r, (0,), like=batch_pl)
+            for r in (_as_dtensor(r, mesh) for r in rows)]
+    seq_dims = [d for d, p in enumerate(k.placements) if p == Shard(1)]
+
+    def reduce(t, op):
+        for d in seq_dims:
+            t = funcol.all_reduce(t, op, (mesh, d))
+            t = t.wait() if isinstance(t, funcol.AsyncCollectiveTensor) else t
+        return t
+
+    def local(ql, kl, vl, *rl):
+        o, m, l = attend(ql, kl, vl, *rl, attn=attention_partial)
+        top = reduce(m, "max")
+        w = torch.exp(m - torch.where(torch.isfinite(top), top, 0.0))  # 0 where m is -inf
+        ol = reduce(torch.cat([o * w[..., None], (l * w)[..., None]], dim=-1), "sum")
+        o, l = ol[..., :-1], ol[..., -1]
+        return (o / torch.where(l > 0, l, 1.0)[..., None]).to(ql.dtype)
+
+    return local_map(local, out_placements=list(batch_pl),
+                     in_placements=(q.placements, k.placements, v.placements,
+                                    *(r.placements for r in rows)),
                      device_mesh=mesh)(q, k, v, *rows)
 
 
@@ -197,6 +248,51 @@ def pointwise(fn, t):
         return fn(t)
     return local_map(fn, out_placements=list(t.placements), in_placements=(t.placements,),
                      device_mesh=t.device_mesh)(t)
+
+
+# ----------------------------------------------------------------- Mamba2 SSD
+def _by_heads(dt: DTensor) -> tuple:
+    """dt's (B, S, H) batch and head shards, replicated elsewhere: the
+    placement of every per-head SSD tensor (B, S, H, ...)."""
+    return tuple(p if p in (Shard(0), Shard(2)) else Replicate() for p in dt.placements)
+
+
+def heads_like(x: DTensor, dt: DTensor) -> DTensor:
+    """The SSD input x (B, S, H, P) placed by heads as dt (B, S, H) is.  x
+    comes whole out of the split of the conv's output into x, B and C, so
+    the slice is local."""
+    return _placed(x, _by_heads(dt))
+
+
+def ssd_scan(scan, x, dA, Bm, Cm, chunk: int):
+    """`scan(x, dA, Bm, Cm, chunk)` (`layers.ssd_chunked`) per rank over its
+    own heads (`local_map`), as GSPMD partitions the reference's scan: x
+    (B, S, H, P) and dA (B, S, H) sharded by heads as dA is, the single
+    group's B and C (B, S, N) whole on every rank.  Returns (y (B, S, H, P),
+    final state (B, H, P, N)), both by heads.  The gradients of x and dA
+    keep their placements; those of B and C are the partial sums of every
+    rank's heads."""
+    mesh = dA.device_mesh
+    head_pl = _by_heads(dA)
+    row_pl = tuple(p if p == Shard(0) else Replicate() for p in head_pl)
+    x, dA = _placed(x, head_pl), _placed(dA, head_pl)
+    Bm, Cm = (_placed(_as_dtensor(t, mesh), row_pl) for t in (Bm, Cm))
+    state_pl = tuple(Shard(1) if p == Shard(2) else p for p in head_pl)
+    bc_grad = tuple(Partial() if p == Shard(2) else r for p, r in zip(head_pl, row_pl))
+    return local_map(lambda *a: scan(*(_contiguous_grad(t) for t in a), chunk),
+                     out_placements=(head_pl, state_pl),
+                     in_placements=(head_pl, head_pl, row_pl, row_pl),
+                     in_grad_placements=(head_pl, head_pl, bc_grad, bc_grad),
+                     device_mesh=mesh)(x, dA, Bm, Cm)
+
+
+def batch_only(t):
+    """`t` gathered over every mesh dim but its batch shards, where it is a
+    DTensor: the input of a column-parallel product that contracts over a
+    sharded dim (the RG-LRU's square gates), as GSPMD gathers it.  DTensor
+    would instead shard the weight's rows to match and reduce-scatter every
+    gate's float32 output.  A plain tensor as it is."""
+    return _keep(t, (0,)) if isinstance(t, DTensor) else t
 
 
 # ------------------------------------------------------------------------ MoE

@@ -13,8 +13,12 @@ Fault-tolerance properties:
   * async: `CheckpointManager.save` copies every leaf to the host (one
     device-to-host copy per leaf, on the caller's stream) before a
     background thread serialises and writes; `wait()` joins;
-  * elastic: `restore(..., devices=...)` places every leaf on the device
-    the given tree names, so a restart may change placement;
+  * sharded: a DTensor leaf is written whole (`full_tensor()`, a
+    collective every rank of its mesh calls), and only rank 0 of the
+    default process group writes;
+  * elastic: `restore(..., shardings=...)` places every leaf on the device
+    or the (mesh, placements) the given tree names, so a restart may change
+    the mesh;
   * bounded: keeps the newest `keep` checkpoints.
 """
 from __future__ import annotations
@@ -27,6 +31,9 @@ from typing import Any, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.device_mesh import DeviceMesh
+from torch.distributed.tensor import DTensor, distribute_tensor
 
 from repro_torch.models.tensors import (dtype_name, flatten_params, tree_structure,
                                         tree_unflatten)
@@ -42,7 +49,16 @@ def _flatten(tree) -> dict[str, Any]:
 
 
 def _to_host(t: torch.Tensor) -> torch.Tensor:
+    """`t` whole on the host (a DTensor gathered: every rank calls this)."""
+    if isinstance(t, DTensor):
+        t = t.full_tensor()
     return t.detach().to("cpu")
+
+
+def _writer() -> bool:
+    """Whether this process writes: rank 0 of the default process group,
+    or the only process there is."""
+    return not dist.is_initialized() or dist.get_rank() == 0
 
 
 def _to_numpy(t: torch.Tensor) -> np.ndarray:
@@ -53,13 +69,18 @@ def _to_numpy(t: torch.Tensor) -> np.ndarray:
 
 
 def save(directory: str, step: int, tree: Any, *, blocking: bool = True) -> str:
-    os.makedirs(directory, exist_ok=True)
+    """Write `tree` as checkpoint `step`; returns its final path.  Under a
+    process group every rank calls it (DTensor leaves gather whole) and
+    rank 0 writes: another rank that restores waits for it first (a
+    barrier)."""
     tmp = os.path.join(directory, f"tmp-{step}")
     final = os.path.join(directory, f"step-{step:08d}")
-    os.makedirs(tmp, exist_ok=True)
     named = _flatten(tree)
     arrays = {k: _to_numpy(v) for k, v in named.items()}
     true_dtypes = {k: dtype_name(v.dtype) for k, v in named.items()}
+    if not _writer():
+        return final
+    os.makedirs(tmp, exist_ok=True)
 
     def _write():
         np.savez(os.path.join(tmp, "tensors.npz"), **arrays)
@@ -90,13 +111,40 @@ def latest_step(directory: str) -> Optional[int]:
     return max(steps) if steps else None
 
 
+def _is_sharding(node) -> bool:
+    return (isinstance(node, tuple) and len(node) == 2
+            and isinstance(node[0], DeviceMesh))
+
+
+def _sharding_leaves(tree, prefix: str = "") -> list[tuple[str, Any]]:
+    """`flatten_params` over a shardings tree whose (mesh, placements)
+    pairs are leaves."""
+    if isinstance(tree, dict):
+        return [kv for k in sorted(tree) for kv in _sharding_leaves(tree[k], f"{prefix}{k}/")]
+    if isinstance(tree, (list, tuple)) and not _is_sharding(tree):
+        return [kv for i, sub in enumerate(tree) for kv in _sharding_leaves(sub, f"{prefix}{i}/")]
+    return [(prefix[:-1], tree)]
+
+
+def _placed(a: np.ndarray, dtype: torch.dtype, where) -> torch.Tensor:
+    """The whole leaf `a` as `dtype` on `where`: a device, or a (mesh,
+    placements) pair (each rank keeps its own shard: every rank read the
+    same file)."""
+    if not _is_sharding(where):
+        return torch.from_numpy(a).to(device=where, dtype=dtype)
+    mesh, placements = where
+    t = torch.from_numpy(a).to(device=mesh.device_type, dtype=dtype)
+    return distribute_tensor(t, mesh, list(placements), src_data_rank=None)
+
+
 def restore(directory: str, like: Any, *, step: Optional[int] = None,
-            devices: Any = None) -> Any:
+            shardings: Any = None) -> Any:
     """Rebuild the tree of `like` from disk, each leaf in its `like` leaf's
-    dtype, on that leaf's device or, given `devices` (a tree of the same
-    structure whose leaves are `torch.device`s), on the device it names:
-    elastic restart onto a new placement.  A checkpoint whose leaf names
-    differ from `like`'s raises `AssertionError`."""
+    dtype and placement (a DTensor's mesh and placements, else its device)
+    or, given `shardings` (a tree of the same structure whose leaves are
+    `torch.device`s or (DeviceMesh, placements) pairs), where it names:
+    elastic restart onto a new mesh.  A checkpoint whose leaf names differ
+    from `like`'s raises `AssertionError`."""
     if step is None:
         step = latest_step(directory)
         if step is None:
@@ -107,11 +155,17 @@ def restore(directory: str, like: Any, *, step: Optional[int] = None,
     flat_like = _flatten(like)
     assert set(named) == set(flat_like), (
         f"checkpoint/model mismatch: {set(named) ^ set(flat_like)}")
-    flat_dev = _flatten(devices) if devices is not None else None
+    flat_where = ({(n or f"leaf{i}"): w for i, (n, w) in enumerate(_sharding_leaves(shardings))}
+                  if shardings is not None else None)
     out = []
     for name, leaf in flat_like.items():
-        dev = flat_dev[name] if flat_dev is not None else leaf.device
-        out.append(torch.from_numpy(named[name]).to(device=dev, dtype=leaf.dtype))
+        if flat_where is not None:
+            where = flat_where[name]
+        elif isinstance(leaf, DTensor):
+            where = (leaf.device_mesh, tuple(leaf.placements))
+        else:
+            where = leaf.device
+        out.append(_placed(named[name], leaf.dtype, where))
     return tree_unflatten(tree_structure(like), out)
 
 
@@ -129,6 +183,8 @@ class CheckpointManager:
         # capture host copies now: the caller may update the tree in place
         host = tree_unflatten(tree_structure(tree),
                               [_to_host(t) for _, t in flatten_params(tree)])
+        if not _writer():
+            return
 
         def _job():
             try:
@@ -155,6 +211,6 @@ class CheckpointManager:
             shutil.rmtree(os.path.join(self.directory, f"step-{s:08d}"),
                           ignore_errors=True)
 
-    def restore_latest(self, like, *, devices=None):
+    def restore_latest(self, like, *, shardings=None):
         self.wait()
-        return restore(self.directory, like, devices=devices)
+        return restore(self.directory, like, shardings=shardings)

@@ -112,15 +112,21 @@ def _tree_like(template, named: dict):
                           [tensor_from_numpy(named[n]).clone() for n, _ in flatten_params(template)])
 
 
+KV_LEAVES = ("k", "v", "self_k", "self_v", "cross_k", "cross_v")
+
+
 def steps_worker(rank: int, inputs: dict) -> dict:
     """Each case's port step on its mesh (see test_torch_steps.py)."""
     import torch
+
+    from torch.distributed.tensor import Shard
 
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.distributed import steps
     from repro_torch.launch.mesh import make_local_mesh
     from repro_torch.models import build_model, sharded
     from repro_torch.models.convert import params_from_numpy
+    from repro_torch.models.tensors import flatten_params
     from repro_torch.train.optimizer import init_opt_state
 
     placed = []
@@ -164,7 +170,11 @@ def steps_worker(rank: int, inputs: dict) -> dict:
             args = b.place(params, torch.from_numpy(data["token"]), torch.from_numpy(data["pos"]),
                            cache)
             logits, new_cache = b.fn(*args)
-            out = {"logits": _full(logits).numpy(), "cache": _named(new_cache)}
+            out = {"logits": _full(logits).numpy(), "cache": _named(new_cache),
+                   # the k / v leaves (..., B, C, K, hd) whose slots shard
+                   "seq_sharded": [n for n, t in flatten_params(args[3])
+                                   if n.rsplit("/", 1)[-1] in KV_LEAVES
+                                   and Shard(t.ndim - 3) in t.placements]}
         results[name] = out
     sharded.expert_parallel = real_ep
     return results
@@ -217,7 +227,61 @@ def compress_worker(rank: int, inputs: dict) -> dict:
             "step": {k: max(s[k] for s in gathered) for k in params}}
 
 
-WORKERS = {"steps": steps_worker, "compress": compress_worker}
+def elastic_worker(rank: int, inputs: dict) -> dict:
+    """One train step on a 2x2 mesh, its state saved (DTensor leaves written
+    whole by rank 0), restored onto a 1x4 mesh by the new step's specs, one
+    more step there; and the same two steps unsharded (see
+    test_torch_elastic.py)."""
+    import copy
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.distributed import steps
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.launch.train import train_step
+    from repro_torch.models import build_model
+    from repro_torch.models.tensors import flatten_params, tree_structure, tree_unflatten
+    from repro_torch.train.checkpoint import restore, save
+    from repro_torch.train.optimizer import AdamWConfig, init_opt_state
+
+    cfg = _port_cfg({"arch": inputs["arch"]})
+    model = build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0), device="cpu")
+    tokens = [{"tokens": torch.from_numpy(t)} for t in inputs["tokens"]]
+    B, S = inputs["tokens"][0].shape
+    shape = ShapeConfig("train", S, B, "train")
+
+    # the unsharded path first: the sharded steps update their shards in place
+    plain_p, plain_o, plain = copy.deepcopy(params), init_opt_state(params), []
+    for batch in tokens:
+        plain_p, plain_o, loss, _ = train_step(model, plain_p, plain_o, batch, AdamWConfig())
+        plain.append(float(loss))
+
+    first = steps.make_train_step(cfg, make_local_mesh((2, 2), device_type="cpu"), shape)
+    p1, o1, loss1 = first.fn(*first.place(params, init_opt_state(params), tokens[0]))
+    save(inputs["dir"], 1, {"params": p1, "opt": o1})
+    dist.barrier()  # rank 0 wrote it
+
+    mesh = make_local_mesh((1, 4), device_type="cpu")
+    second = steps.make_train_step(cfg, mesh, shape)
+    saved = {"params": p1, "opt": o1}
+    pairs = {k: [(mesh, shd.placements(s, mesh)) for s in shd.spec_leaves(spec)]
+             for k, spec in (("params", second.specs[0]), ("opt", second.specs[1]))}
+    state = restore(inputs["dir"], saved, shardings={
+        k: tree_unflatten(tree_structure(saved[k]), pairs[k]) for k in pairs})
+    wrong = [f"{k}/{n}" for k in pairs
+             for (n, t), (m, pl) in zip(flatten_params(state[k]), pairs[k])
+             if t.device_mesh is not m or tuple(t.placements) != pl]
+    p2, _, loss2 = second.fn(state["params"], state["opt"],
+                             shd.distribute(tokens[1], second.specs[2], mesh))
+    return {"losses": [float(_full(loss1)), float(_full(loss2))], "plain": plain,
+            "params": _named(p2), "plain_params": _named(plain_p), "wrong": wrong}
+
+
+WORKERS = {"steps": steps_worker, "compress": compress_worker, "elastic": elastic_worker}
 
 
 if __name__ == "__main__":

@@ -245,11 +245,74 @@ def test_train_phase_rehearses_on_cpu(monkeypatch, tmp_path, capsys):
     assert not (tmp_path / "build" / "train_ckpt").exists()
 
 
+def test_trace_phase_rehearses_on_cpu(monkeypatch, tmp_path):
+    """The [trace] phase on the CPU over the llama3.2-1b stand-in: a cold
+    load, a store-tier reload and 3 fused decode steps on a traced engine,
+    the span families and their nesting, and a Chrome trace that loads."""
+    import json
+
+    cs = load_chip_smoke()
+    monkeypatch.setattr(cs, "SERVERLESS_PROMPT", 24)
+    monkeypatch.setattr(cs, "TRACE_DIR", tmp_path / "trace")
+    cfgs, weights = tiny_models(cs)
+    counts = cs.trace_phase(cfgs["llama3.2-1b"], weights["llama3.2-1b"], "cpu")
+    assert counts == {"paged_attention": 0, "flash_attention": 0}  # CPU: plain versions
+    doc = json.loads((tmp_path / "trace" / "llama3.2-1b.json").read_text())
+    assert sum(e["ph"] == "X" for e in doc["traceEvents"]) > 10
+
+
+def test_examples_phase_rehearses_on_cpu(monkeypatch, tmp_path):
+    """The [examples] phase on the CPU: the four ported examples as
+    processes of their own, each exiting 0 with its own check's line
+    (train_100m and serve_cluster cut short)."""
+    cs = load_chip_smoke()
+    monkeypatch.setattr(cs, "EXAMPLE_CKPT", tmp_path / "ckpt")
+    monkeypatch.setenv("OMP_NUM_THREADS", "2")  # four processes at once
+    cs.examples_phase("cpu", overrides={"train_100m": ("--steps", "2", "--crash-at", "1",
+                                                       "--ckpt-dir", str(tmp_path / "ckpt")),
+                                        "serve_cluster": ("--requests", "20")})
+    assert not (tmp_path / "ckpt").exists()
+
+
+def test_dense_phase_rehearses_on_cpu(monkeypatch):
+    """The [dense] phase on the CPU over yi-9b and codeqwen1.5-7b stand-ins
+    (G 4 and G 1; the larger model ~1.2x the smaller, as at full width
+    1.08x): the seeded trace's warm, full h2d and partial-reuse starts,
+    every load's bytes, the first requests against the plain attention and
+    each model's launches."""
+    from collections import Counter
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.trace import SimModel
+    from repro_torch.serverless import poisson_trace
+
+    cs = load_chip_smoke()
+    monkeypatch.setattr(cs, "SERVERLESS_PROMPT", 40)
+    monkeypatch.setattr(cs, "SERVERLESS_GEN", 4)
+    count_plain_calls(monkeypatch)
+    cfgs = {m: dataclasses.replace(get_config(m), **TINY_DENSE[m]) for m in cs.DENSE_MODELS}
+    weights = {m: cs.draw_weights(c, i, "cpu") for i, (m, c) in enumerate(cfgs.items())}
+    per_model = cs.dense_phase(cfgs, weights, "cpu")
+    trace = poisson_trace(models=[SimModel(m, 1e6, 1) for m in cfgs], **cs.SERVERLESS_TRACE)
+    n = Counter(r.model_id for r in trace)
+    assert per_model == {m: {"paged_attention": c.num_layers * 4 * n[m],
+                             "flash_attention": c.num_layers * n[m]}
+                         for m, c in cfgs.items()}
+
+
+TINY_DENSE = {"yi-9b": dict(num_layers=6, d_model=128, d_ff=384, vocab_size=512, num_heads=4,
+                            num_kv_heads=1, head_dim=32),
+              "codeqwen1.5-7b": dict(num_layers=4, d_model=128, d_ff=384, vocab_size=720,
+                                     num_heads=4, num_kv_heads=4, head_dim=32)}
+
+
 def test_distributed_phase_rehearses_on_cpu():
     """The [distributed] phase on the CPU at smoke sizes, in a process of its
     own (its one-rank gloo group must not outlive it): the three steps on a
-    1x1 mesh against the undistributed path, compressed gradients, and the
-    dry-run subprocess on one cell (no kernel launches on the CPU)."""
+    1x1 mesh against the undistributed path (the serve step through the
+    flash-decode combine), an elastic checkpoint round trip, compressed
+    gradients, and the dry-run subprocess on one cell (no kernel launches
+    on the CPU)."""
     from dist_helpers import run_snippet
 
     code = ("import sys\n"
@@ -260,6 +323,7 @@ def test_distributed_phase_rehearses_on_cpu():
     assert out.returncode == 0, out.stderr[-3000:]
     for line in ("make_train_step's gradients vs launch.train's", "train step 2:",
                  "bitwise equal True", "prefill step:", "serve step 1", "compressed_grad_fn",
+                 "elastic checkpoint of",
                  "dryrun llama3.2-1b|decode_32k|single: bottleneck",
                  "kernel launches over the phase: {'paged_attention': 0, 'flash_attention': 0}"):
         assert line in out.stdout, line

@@ -57,6 +57,21 @@ def test_port_imports_with_jax_blocked():
     assert out.stdout.strip() == "ok"
 
 
+def test_examples_import_with_jax_blocked():
+    """The four ported examples (`python -m repro_torch.examples.<name>`)
+    import with JAX and the reference blocked."""
+    code = ("import sys\n"
+            "for name in ('jax', 'jaxlib', 'ml_dtypes', 'repro'):\n"
+            "    sys.modules[name] = None\n"
+            "from repro_torch.examples import quickstart, serve_cluster, serve_engine, train_100m\n"
+            "print('ok')\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
 @pytest.mark.parametrize("name", ["paged_attention", "flash_attention"])
 def test_every_kernel_has_its_cuda_source(name):
     from repro_torch.kernels import build

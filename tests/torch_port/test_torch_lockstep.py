@@ -74,3 +74,16 @@ def test_copy_list_covers_every_ported_verbatim_module():
         ref = REF / rel
         if ref.exists() and rel not in COPIED and rel != "configs/base.py":
             assert without_imports(path) != without_imports(ref), rel
+
+
+@pytest.mark.parametrize("name", ["Prefetcher", "PrefetchJob"])
+def test_prefetcher_class_matches_reference(name):
+    """serving/engine.py differs from the reference (the engine's tensors),
+    but its store->host promotion pipeline is framework-neutral: the two
+    classes' syntax trees are equal."""
+    def classes(path: Path) -> dict:
+        return {n.name: ast.dump(n) for n in ast.parse(path.read_text()).body
+                if isinstance(n, ast.ClassDef)}
+
+    rel = "serving/engine.py"
+    assert classes(PORT / rel)[name] == classes(REF / rel)[name]

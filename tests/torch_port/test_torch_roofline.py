@@ -1,8 +1,9 @@
 """`repro_torch.roofline.analysis`: `CostCounter` against the analytic
 per-chip counts of the reference's scanned-MLP test
 (tests/test_roofline.py), the analytic model FLOPs against the reference's,
-and the per-chip matmul FLOPs of a whole train step against the reference's
-HLO walker on the same cell.  The port's counts run in a subprocess that
+and the per-chip matmul FLOPs and collective bytes of every arch's train
+step against the reference's HLO walker on the same cell (prefill and
+decode: `test_torch_roofline_serve.py`).  The port's counts run in a subprocess that
 joined a fake process group (shapes only); the reference's in one with
 forced host devices."""
 import json
@@ -72,64 +73,30 @@ def test_moe_counts_active_experts_only():
     assert roof.active_params(cfg) < cfg.param_count() / 5
 
 
-CELL_ARCHS = ["llama3.2-1b", "qwen3-moe-30b-a3b"]
-
-REF_CELL = """
-import os
-os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=16"
-import dataclasses, json, jax
-from repro.configs import SHAPES, all_configs
-from repro.distributed.steps import make_step
-from repro.distributed.sharding import make_mesh_compat
-from repro.launch.dryrun import trip_hints
-from repro.roofline.analysis import HloModule
-
-mesh = make_mesh_compat((4, 4), ("data", "model"), devices=jax.devices())
-shape = dataclasses.replace(SHAPES["train_4k"], seq_len=256, global_batch=8)
-out = {}
-for arch in ARCHS:
-    cfg = all_configs()[arch].smoke()
-    bundle = make_step(cfg, mesh, shape)
-    with mesh:
-        compiled = bundle.fn.lower(*bundle.args).compile()
-    out[arch] = HloModule(compiled.as_text(), trip_hints(cfg, shape)).entry_cost().flops
-print("RESULT" + json.dumps(out))
-"""
-
-PORT_CELL = """
-import dataclasses, json
-from repro_torch.launch.dryrun import init_fake_world, trace_step
-init_fake_world(16)
-from repro_torch.configs import SHAPES, get_config
-from repro_torch.launch.mesh import make_mesh_compat
-
-mesh = make_mesh_compat((4, 4), ("data", "model"))
-shape = dataclasses.replace(SHAPES["train_4k"], seq_len=256, global_batch=8)
-print("RESULT" + json.dumps({arch: trace_step(get_config(arch).smoke(), shape, mesh)[1].flops
-                             for arch in ARCHS}))
-"""
+CELL_ARCHS = sorted(all_configs())
 
 
 @pytest.fixture(scope="module")
 def train_cell_flops():
-    from dist_helpers import finish, start_snippet
+    """Both packages' per-chip costs of every arch's train cell (see
+    `walker_cells`), each package in its own subprocess, run together."""
+    import walker_cells
 
-    head = f"ARCHS = {CELL_ARCHS!r}\n"
-    ref = start_snippet(head + REF_CELL, {"JAX_PLATFORMS": "cpu"})
-    port = start_snippet(head + PORT_CELL)
-    (ref_out, _), (port_out, _) = finish(ref, 600), finish(port, 600)
-    return (json.loads(port_out.split("RESULT")[1]), json.loads(ref_out.split("RESULT")[1]))
+    procs = [walker_cells.start(CELL_ARCHS, ["train_4k"], port) for port in (True, False)]
+    return walker_cells.collect(procs[:1]), walker_cells.collect(procs[1:])
 
 
 @pytest.mark.parametrize("arch", CELL_ARCHS)
 def test_train_cell_flops_match_reference_walker(train_cell_flops, arch):
     """The smoke config's train_4k cut to S 256, B 8, on a 4x4 mesh: the
     port's per-chip matmul FLOPs within 10% of the reference walker's (the
-    dense model to the FLOP; the MoE model's GShard dispatch and combine
-    take the experts' sharding, as GSPMD gives them)."""
-    got, want = train_cell_flops[0][arch], train_cell_flops[1][arch]
-    print(f"{arch} per-chip matmul FLOPs: port {got:.0f}, reference walker {want:.0f}")
-    assert abs(got - want) <= 0.1 * want, (got, want)
+    dense models to the FLOP; the MoE models' GShard dispatch and combine
+    take the experts' sharding, as GSPMD gives them; Mamba2's scan runs on
+    each rank's own heads) and its per-chip collective bytes at most 1.1x
+    the walker's."""
+    import walker_cells
+
+    walker_cells.hold(*train_cell_flops, f"{arch}|train_4k")
 
 
 @pytest.mark.parametrize("causal,window,pairs", [(True, 0, 10), (True, 2, 7), (False, 0, 16),

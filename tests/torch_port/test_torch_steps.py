@@ -6,7 +6,7 @@ Cases (4 ranks each):
 - llama3.2-1b on a 2x2 (data, model) mesh: one train step (loss, and the
   parameters after AdamW), the same with 2 microbatches, a prefill step
   (last logits and caches) and a serve step over a sequence-sharded cache
-  (logits and caches);
+  (logits and caches: the flash-decode combine);
 - qwen3-moe-30b-a3b with the GShard dispatch, expert-parallel over
   "model" (`moe_ep_axis`): equal to the run without the axis, with the
   dispatch and combine tensors placed Shard(2) on "model";
@@ -15,7 +15,11 @@ Cases (4 ranks each):
 - llama3.2-1b on a 1x4 mesh with H 4, K 2 (Megatron-GQA: KV replicated,
   one query head per rank, ranks 2 and 3 read KV head 1) and with H 6,
   K 2 (6 % 4 != 0: head dim shards), prefill against the unsharded port
-  and the reference's prefill step.
+  and the reference's prefill step;
+- serve steps over sequence-sharded caches for mixtral-8x7b (its SWA ring,
+  past the wrap), whisper-tiny (self and cross caches) and
+  qwen3-moe-30b-a3b; mamba2-2.7b's train step (the scan by heads) and
+  recurrentgemma-9b's prefill step, on the 2x2 mesh.
 """
 import json
 import os
@@ -49,7 +53,17 @@ CASES = [
      "heads": [4, 2]},
     {"name": "hd_fallback", "arch": "llama3.2-1b", "mesh": [1, 4], "kind": "prefill", "B": B,
      "S": S, "heads": [6, 2]},
+    {"name": "serve_ring", "arch": "mixtral-8x7b", "mesh": [2, 2], "kind": "serve", "B": B,
+     "S": CAP, "pos": 20},
+    {"name": "serve_encdec", "arch": "whisper-tiny", "mesh": [2, 2], "kind": "serve", "B": B,
+     "S": CAP},
+    {"name": "serve_moe", "arch": "qwen3-moe-30b-a3b", "mesh": [2, 2], "kind": "serve", "B": B,
+     "S": CAP},
+    {"name": "ssd_train", "arch": "mamba2-2.7b", "mesh": [2, 2], "kind": "train", "B": B, "S": S},
+    {"name": "rglru_prefill", "arch": "recurrentgemma-9b", "mesh": [2, 2], "kind": "prefill",
+     "B": B, "S": S},
 ]
+SERVE = [c["name"] for c in CASES if c["kind"] == "serve"]
 
 REF_SNIPPET = """
 import os, sys, json, pickle
@@ -104,17 +118,20 @@ for i, case in enumerate(cases):
         out["ref"][case["name"]] = {"last": np.asarray(last), "cache": named(cache)}
     else:
         spec = model.input_specs(shape)
-        flat = {}
+        flat, P = {}, case.get("pos", """ + str(POS) + """)
         for p, leaf in jax.tree_util.tree_flatten_with_path(spec["cache"])[0]:
             name = leaf_path(p)
             if name.endswith("kv_pos"):
-                pos = np.arange(leaf.shape[-1])
-                flat[name] = np.broadcast_to(np.where(pos < """ + str(POS) + """, pos, -1),
+                # ring slot s holds the latest position before P that is s mod C
+                C = leaf.shape[-1]
+                slot = np.arange(C)
+                held = slot + C * ((P - 1 - slot) // C)
+                flat[name] = np.broadcast_to(np.where(held >= 0, held, -1),
                                              leaf.shape).astype(np.int32)
             else:
                 flat[name] = (rng.standard_normal(leaf.shape) * 0.5).astype(np.float32)
         token = rng.integers(0, cfg.vocab_size, (case["B"],)).astype(np.int32)
-        pos = np.full((case["B"],), """ + str(POS) + """, np.int32)
+        pos = np.full((case["B"],), P, np.int32)
         out["data"][case["name"]] = {"cache": flat, "token": token, "pos": pos}
         b = steps.make_serve_step(cfg, mesh, shape)
         with mesh:
@@ -157,7 +174,7 @@ def _hold_tree(got: dict, want: dict, tol: float):
     assert errs[worst] <= tol, (worst, errs[worst])
 
 
-@pytest.mark.parametrize("name", ["train", "train_mb2"])
+@pytest.mark.parametrize("name", ["train", "train_mb2", "ssd_train"])
 def test_train_step_matches_reference(runs, name):
     ref, port = runs
     r, p = ref["ref"][name], port[name]
@@ -174,7 +191,8 @@ def test_microbatches_keep_the_loss(runs):
     assert abs(port["train_mb2"]["loss"] - port["train"]["loss"]) <= LOSS_TOL
 
 
-@pytest.mark.parametrize("name", ["prefill", "moe_prefill", "gqa", "hd_fallback"])
+@pytest.mark.parametrize("name", ["prefill", "moe_prefill", "gqa", "hd_fallback",
+                                  "rglru_prefill"])
 def test_prefill_step_matches_reference_and_unsharded(runs, name):
     ref, port = runs
     r, p = ref["ref"][name], port[name]
@@ -183,11 +201,16 @@ def test_prefill_step_matches_reference_and_unsharded(runs, name):
     _hold_tree(p["cache"], r["cache"], OUT_TOL)
 
 
-def test_serve_step_matches_reference(runs):
+@pytest.mark.parametrize("name", SERVE)
+def test_serve_step_matches_reference(runs, name):
+    """A serve step over a cache sequence-sharded on "model" (the flash-decode
+    combine): llama3.2-1b, mixtral-8x7b's SWA ring past its wrap,
+    whisper-tiny's self and cross caches, qwen3-moe-30b-a3b."""
     ref, port = runs
-    r, p = ref["ref"]["serve"], port["serve"]
+    r, p = ref["ref"][name], port[name]
     assert _max_err(p["logits"], r["logits"]) <= OUT_TOL
     _hold_tree(p["cache"], r["cache"], OUT_TOL)
+    assert p["seq_sharded"], "no cache leaf was sequence-sharded"
 
 
 def test_expert_parallel_axis_changes_placement_not_values(runs):

@@ -149,15 +149,37 @@ def test_checkpoint_detects_tree_mismatch(tmp_path):
 
 
 def test_elastic_restore_onto_new_placement(tmp_path):
-    """Restore puts every leaf on the device the `devices` tree names."""
+    """Restore puts every leaf on the device the `shardings` tree names."""
     cfg, model = tiny_model()
     params = init(model)
     save(str(tmp_path), 5, params)
     like = tree_map(lambda p: torch.empty(p.shape, dtype=p.dtype, device="meta"), params)
-    devices = tree_map(lambda p: torch.device("cpu"), params)
-    restored = restore(str(tmp_path), like, devices=devices)
+    shardings = tree_map(lambda p: torch.device("cpu"), params)
+    restored = restore(str(tmp_path), like, shardings=shardings)
     for (n, a), (_, b) in zip(flatten_params(restored), flatten_params(params)):
         assert a.device == torch.device("cpu") and torch.equal(a, b), n
+
+
+def test_elastic_restore_with_new_sharding(tmp_path):
+    """tests/test_train.py's test of the same name on both packages: one
+    checkpoint, restored by the reference onto `SingleDeviceSharding`s and
+    by the port onto the device each `shardings` leaf names, gives the same
+    leaves in each one's placement."""
+    cfg, model = tiny_model()
+    params = init(model)
+    save(str(tmp_path), 5, params)
+    like = tree_map(torch.zeros_like, params)
+    restored = restore(str(tmp_path), like,
+                       shardings=tree_map(lambda p: torch.device("cpu"), params))
+    ref_like = jax.tree.map(lambda t: jnp.zeros(tuple(t.shape), jnp.float32), params)
+    sharding = jax.sharding.SingleDeviceSharding(jax.devices()[0])
+    got = ref_ckpt.restore(str(tmp_path), ref_like,
+                           shardings=jax.tree.map(lambda _: sharding, ref_like))
+    assert jax.tree.leaves(got)[0].sharding == sharding
+    want = ref_named_numpy(got)
+    for n, t in flatten_params(restored):
+        assert t.device == torch.device("cpu"), n
+        assert np.array_equal(to_f32(t), want[n].astype(np.float32)), n
 
 
 def test_async_save_error_surfaces_on_wait(tmp_path):
