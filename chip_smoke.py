@@ -24,10 +24,12 @@ run outside a checkout of the repository):
    `Engine.register_model`, a cold then a warm `Engine.load`, prefill of 4
    prompts of lengths 512/384/200/64, 1 + 32 decode steps under
    `torch.cuda.set_sync_debug_mode("error")`, a second instance and 8 fused
-   `decode_many` steps.  Launch counters are zeroed just before and read
-   just after; the decode logits are then held against the same run with
-   the plain paged attention (`attn_mode="ref"`), and `torch.profiler`
-   splits a warm prefill and 8 decode steps by kernel (`[profile]` lines);
+   `decode_many` steps, the decode step a CUDA graph from its second call
+   on (the engine's default, `serving/step_graph.py`).  Launch counters are
+   zeroed just before and read just after; the decode logits are then held
+   against the same run with the plain paged attention (`attn_mode="ref"`),
+   and `torch.profiler` splits a warm prefill and 8 decode steps by kernel
+   (`[profile]` lines);
 4. `[serverless]`: the single-engine `Gateway` at full width over
    llama3.2-1b and deepseek-7b (weights drawn once each, on the card from a
    seeded generator, kept in page-locked host memory and handed to every
@@ -36,8 +38,11 @@ run outside a checkout of the repository):
    16 greedy tokens) under a fixed 10 s keep-alive: warm starts, full h2d
    cold starts and cold starts that reuse part of the model from the pool.
    Every load's bytes are checked against the model's, the first request of
-   each model is held against the plain attention path, launch counts
-   against the requests, and a crash must give the card's memory back;
+   each model is held against the plain attention path (its first decode
+   step, the eager first call of its key, so a MoE model's router replay
+   sees every step), launch counts against the requests, each model's
+   graphed decode at B 1 after its capture against its weight-read floor,
+   and a crash must give the card's memory back;
 5. `[fleet]`: `FleetGateway` over two engines on the card under the seeded
    `chaos_schedule` (an h2d stall and a prefetch-worker death per engine, a
    crash and a recovery), host tiers bounded so that released tensors
@@ -48,6 +53,14 @@ run outside a checkout of the repository):
    host tier that holds nothing: a cold load, a store-tier reload, a
    prefill and 3 fused decode steps; the span families, each phase nested
    in its load, and the Chrome trace (build/trace/) loaded back;
+6b. `[graphs]`: llama3.2-1b at full width on an eager engine
+   (``cuda_graphs=False``) and a graphed one over the same weights: 32 B 4
+   decode steps (the capture inside the sync-error window; the device
+   copies dropped and reloaded before step 16, the graph with them, then
+   recaptured) and 32 fused B 8 steps, the graphed run fed the eager run's
+   tokens: logits equal (bitwise, else within the bf16 tolerance), launches
+   equal, device memory after `finish` the eager engine's; capture time,
+   pool bytes, host time of a step, steady walls, and `[profile]` of both;
 7. `[dedup]`: deepseek-7b and three fine-tune variants registered with
    `Engine.register_variant` (delta leaves: the layer-stacked wq and wo).
    With the base resident, each variant's cold load moves exactly its delta
@@ -640,6 +653,8 @@ def main_path(cfg=None, device="cuda") -> dict:
     for i, lg in enumerate(step_logits):
         assert lg.shape == (B, cfg.padded_vocab)
         assert bool(torch.isfinite(lg.float()).all()), f"non-finite logits at step {i}"
+    if eng.step_graphs is not None:
+        log(f"[main] decode step graphs: {graph_stats(eng.step_graphs)}")
     log(f"[main] prefill {prefill_s * 1e3:.2f} ms first, {prefill2_s * 1e3:.2f} ms second, "
         f"for {sum(PROMPT_LENS)} prompt tokens (B={B}, padded S={S}); decode {decode_s / DECODE_STEPS * 1e3:.3f} ms/step, "
         f"{B * DECODE_STEPS / decode_s:.1f} tokens/s (B={B}, sync-free); "
@@ -690,8 +705,10 @@ def _device_ms(prof, reps: int) -> tuple[dict[str, float], int]:
 def profile_steps(inst, prefill, steps: int, tag: str, what: str, decode_what: str):
     """Where the time goes: torch.profiler over `prefill()` (which returns
     the prompt's logits) and then `steps` decode steps of `inst`, outside
-    any counted path; logs walls, device busy time, the idle share, kernels
-    a step, K2's and K1's share and the largest kernels."""
+    any counted path, after two unprofiled steps (on a graphed engine the
+    key's eager first call and its capture); logs walls, device busy time,
+    the idle share, kernels a step, K2's and K1's share and the largest
+    kernels."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -707,7 +724,18 @@ def profile_steps(inst, prefill, steps: int, tag: str, what: str, decode_what: s
         k2_ms = sum(t for n, t in by_name.items() if "flash_bf16_kernel" in n)
         log(f"[{tag}] prefill {what} (profiled): wall {prefill_ms:.3f} ms, device busy "
             f"{busy_ms:.3f} ms, {n_kernels} kernels, K2 {k2_ms:.3f} ms")
-    tok = inst.decode(tok).argmax(-1).to(torch.int32)
+    for _ in range(2):
+        tok = inst.decode(tok).argmax(-1).to(torch.int32)
+    profile_decode_steps(inst, tok, steps, tag, decode_what)
+
+
+def profile_decode_steps(inst, tok, steps: int, tag: str, what: str):
+    """torch.profiler over `steps` decode steps of `inst` from `tok`: wall,
+    device busy time, the idle share, kernels a step, K1's share and the
+    largest kernels."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -723,7 +751,7 @@ def profile_steps(inst, prefill, steps: int, tag: str, what: str, decode_what: s
     k1_ms = sum(t for n, t in by_name.items()
                 if "paged_split_kernel" in n or "paged_combine_kernel" in n)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
-    log(f"[{tag}] decode {decode_what} (profiled): wall {wall_ms:.3f} ms/step, "
+    log(f"[{tag}] decode {what} (profiled): wall {wall_ms:.3f} ms/step, "
         f"device busy {busy_ms:.3f} ms/step, idle share {1 - busy_ms / wall_ms:.3f}, "
         f"{n_kernels / steps:.0f} kernels/step, K1 (split + combine) {k1_ms:.3f} ms/step; top: "
         + "; ".join(f"{n[:60]} {t:.3f} ms" for n, t in top))
@@ -731,10 +759,13 @@ def profile_steps(inst, prefill, steps: int, tag: str, what: str, decode_what: s
 
 def profile_decode(eng, cfg, batch, steps: int = 8):
     """The main path's warm prefill and `steps` decode steps of a fresh
-    instance under the profiler (`profile_steps`)."""
+    instance under the profiler (`profile_steps`), the decode step eager or
+    graphed as `eng` runs it."""
     inst = eng.start_instance(cfg.name, max_blocks_per_seq=64, num_pages=256)
+    route = "eager" if eng.step_graphs is None else "graphed"
     profile_steps(inst, lambda: inst.prefill(batch, lengths=PROMPT_LENS), steps, "profile",
-                  f"B={len(PROMPT_LENS)} S={max(PROMPT_LENS)}", f"B={len(PROMPT_LENS)}")
+                  f"B={len(PROMPT_LENS)} S={max(PROMPT_LENS)}",
+                  f"B={len(PROMPT_LENS)} {route}")
     inst.finish()
 
 
@@ -857,17 +888,28 @@ def release_memory():
 
 
 def allocated(dev) -> int:
+    """Device bytes the live tensors requested, once the card is idle and
+    unreachable Python objects are collected, without the cuBLAS
+    workspaces: a decode-step capture clears them (`serving/step_graph.py`)
+    and the next eager matmul allocates its stream's anew (32 MiB on
+    Hopper), so they come and go between any two readings.  Requested, not
+    allocated, bytes: the caching allocator may place a tensor in a larger
+    cached block than it asked for, by up to 1 MiB, as its cache happens
+    to be fragmented."""
     import torch
 
     if dev.type != "cuda":
         return 0
+    gc.collect()
     torch.cuda.synchronize()
-    return torch.cuda.memory_allocated(dev)
+    torch._C._cuda_clearCublasWorkspaces()
+    return torch.cuda.memory_stats(dev)["requested_bytes.all.current"]
 
 
 def device_bytes(eng) -> int:
     """Bytes of every device tensor the engine holds: its pool's buffers, KV
-    slabs, fused tables and live instances' tables."""
+    slabs, fused tables, captured decode steps' static buffers and live
+    instances' tables."""
     import torch
 
     tensors = list(eng._tensors.values())
@@ -875,6 +917,9 @@ def device_bytes(eng) -> int:
         tensors += [slab.k_pages, slab.v_pages]
     for cached in eng._fused.values():
         tensors += [t for t in cached if isinstance(t, torch.Tensor)]
+    if eng.step_graphs is not None:  # captured steps' static buffers
+        for g in eng.step_graphs.live():
+            tensors += list(g.inputs + g.outputs)
     for insts in eng._live_instances.values():
         for inst in insts:
             tensors += [t for t in (inst._tables, inst._lengths) if t is not None]
@@ -1034,6 +1079,8 @@ def hold_first_tokens(eng, names, tag="serverless"):
     A MoE model's plain run takes the expert choices of a rerun of its
     kernel path (which must give the first request's logits again)."""
     worst = {}
+    graphs = eng.step_graphs
+    replays = graphs.replays if graphs is not None else 0
     for m in names:
         rec = eng.first[m]
         eng.load(m)
@@ -1053,6 +1100,10 @@ def hold_first_tokens(eng, names, tag="serverless"):
         for step, want in plain.items():
             worst[(m, step)] = err = rel_err(held[step], want)
             assert err <= TOL["bfloat16"], f"{m} {step}: logits differ by {err} of scale"
+    # each run decodes one step of a fresh instance: its key's eager first
+    # call (a model's graphs go with its last instance), so the router hook
+    # saw every step
+    assert graphs is None or graphs.replays == replays, (graphs.replays, replays)
     log(f"[{tag}] first request of each model vs the plain attention path: "
         + ", ".join(f"{m} {step} {e:.3e}" for (m, step), e in worst.items())
         + f" (max |diff| / scale, tol {TOL['bfloat16']:g})")
@@ -1150,6 +1201,7 @@ def serverless_phase(cfgs: dict, weights: dict, device="cuda", *, tag="serverles
     decode_floors(tag, cfgs, recs)
     gw._expire(math.inf)  # the keep-alives lapse: the hold loads each model in turn
     hold_first_tokens(eng, names, tag)
+    steady_decode(eng, cfgs, tag, prompt)
     if probe is not None:
         per_model.update(probe(eng))
     eng.crash()
@@ -1161,18 +1213,62 @@ def serverless_phase(cfgs: dict, weights: dict, device="cuda", *, tag="serverles
     return per_model
 
 
-def decode_floors(tag, cfgs, recs):
-    """Each model's decode wall per token against its weight-read floor: a
-    step reads every weight once (the dense einsum over (E, cap) reads
-    every expert of a MoE layer), the embedding table aside, at the card's
-    memory rate."""
+def weight_floor(m, cfg) -> tuple[int, float]:
+    """Bytes a decode step must read and their time at the card's memory
+    rate (ms): every weight once (the dense einsum over (E, cap) reads every
+    expert of a MoE layer), the embedding table aside."""
     from repro_torch.models.tensors import spec_records
 
+    nbytes = sum(r.nbytes for r in spec_records(m, cfg) if not r.name.endswith("/embed"))
+    return nbytes, nbytes / HBM_BYTES_PER_S * 1e3
+
+
+def decode_floors(tag, cfgs, recs):
+    """Each model's decode wall per token over its requests (each request's
+    first step eager and its second the capture) against its weight-read
+    floor."""
     for m, cfg in cfgs.items():
-        nbytes = sum(r.nbytes for r in spec_records(m, cfg) if not r.name.endswith("/embed"))
+        nbytes, floor = weight_floor(m, cfg)
         walls = [r.decode_s / SERVERLESS_GEN * 1e3 for r in recs if r.model_id == m]
         log(f"[{tag}] {m}: decode {min(walls):.3f}-{max(walls):.3f} ms/token at B 1 against a "
-            f"weight-read floor of {nbytes / HBM_BYTES_PER_S * 1e3:.3f} ms ({nbytes} B a step)")
+            f"weight-read floor of {floor:.3f} ms ({nbytes} B a step)")
+
+
+STEADY_STEPS = 16
+
+
+def steady_decode(eng, cfgs, tag, prompt):
+    """Each paged model's decode at B 1 once its step is captured: a fresh
+    instance's prefill of the phase's prompt, the key's eager first call and
+    its capture, then `STEADY_STEPS` replays timed sync-free, against the
+    weight-read floor (`weight_floor`), and 8 more under the profiler."""
+    from repro_torch.serverless.gateway import greedy, make_prefill_batch, settle, sync_free
+    from repro_torch.serving.engine import _is_paged_family
+
+    for m, cfg in cfgs.items():
+        if not _is_paged_family(cfg):
+            continue
+        eng.load(m)
+        inst = eng.start_instance(m)
+        tok = settle(greedy(inst.prefill(make_prefill_batch(eng, m, prompt, 0))))
+        for _ in range(2):
+            tok = greedy(inst.decode(tok))
+        settle(tok)
+        t0 = time.perf_counter()
+        with sync_free(tok.device):
+            for _ in range(STEADY_STEPS):
+                tok = greedy(inst.decode(tok))
+        settle(tok)
+        wall = (time.perf_counter() - t0) / STEADY_STEPS * 1e3
+        nbytes, floor = weight_floor(m, cfg)
+        route = "eager" if eng.step_graphs is None else "graphed"
+        log(f"[{tag}] {m}: {route} decode {wall:.3f} ms/token at B 1 over {STEADY_STEPS} "
+            f"steps after the capture, {wall / floor:.2f}x its weight-read floor of "
+            f"{floor:.3f} ms")
+        if tok.device.type == "cuda":
+            profile_decode_steps(inst, tok, 8, tag, f"{m} B=1 {route}")
+        inst.finish()
+        eng.release(m)
 
 
 def family_configs() -> dict:
@@ -1286,6 +1382,203 @@ def trace_phase(cfg, weights, device="cuda") -> dict:
                 "flash_attention": cfg.num_layers}
         assert counts == want, (counts, want)
     return counts
+
+
+# ------------------------------------------------------------------ [graphs]
+GRAPH_STEPS = 32  # B 4 steps of one instance, then fused B 8 steps of two
+GRAPH_EVICT_AT = 16  # the device copies are dropped and reloaded before this step
+
+
+def graph_stats(g) -> str:
+    return (f"{g.eager_steps} eager first calls, {g.captures} captures "
+            f"({g.capture_seconds / max(g.captures, 1) * 1e3:.3f} ms and "
+            f"{g.pool_bytes_captured // max(g.captures, 1)} B of private pool each), "
+            f"{g.replays} replays, {g.dropped} dropped, {len(g)} live")
+
+
+def graph_run(eng, cfg, batch, fed=None) -> dict:
+    """The main path's decode on `eng`: one instance at B 4 for
+    `GRAPH_STEPS` steps, its model's device copies dropped and reloaded
+    before step `GRAPH_EVICT_AT`, then a second instance and `GRAPH_STEPS`
+    fused `decode_many` steps at B 8; the decode loops under
+    `set_sync_debug_mode("error")` (`sync_free`).  `fed`: an earlier run's
+    tokens, fed in its order (else greedy).  Returns the logits, tokens,
+    launches, steady walls (replays only on a graphed engine), host time
+    of one step and device bytes allocated over the run."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.serverless.gateway import greedy, settle, sync_free
+    from repro_torch.serving.engine import _paged_decode_step
+
+    m, dev, g = cfg.name, eng.device, eng.step_graphs
+    B = len(PROMPT_LENS)
+    feed = iter(fed) if fed is not None else None
+    out = {"logits": [], "tokens": [], "walls": {}, "graphs": []}
+
+    def fed_or_greedy(logits):
+        # a fed token is copied, so both runs allocate what they hold
+        tok = next(feed).clone() if feed is not None else greedy(logits)
+        out["tokens"].append(tok)
+        return tok
+
+    def steps(n, step):
+        for _ in range(n):
+            logits = step()
+            out["logits"].append(logits)
+            step.tok = fed_or_greedy(logits)
+
+    def timed(name, n, step):
+        settle(step.tok)
+        t0 = time.perf_counter()
+        with sync_free(dev):
+            steps(n, step)
+        settle(step.tok)
+        out["walls"][name] = (time.perf_counter() - t0) / n * 1e3
+
+    def mark(what):
+        if g is not None:
+            out["graphs"].append((what, g.captures, len(g.live(m))))
+
+    ops.reset_launch_counts()
+    base = allocated(dev)
+    inst = eng.start_instance(m, max_blocks_per_seq=64, num_pages=256)
+
+    def one():
+        return inst.decode(one.tok)
+
+    one.tok = fed_or_greedy(inst.prefill(batch, lengths=PROMPT_LENS))
+    mark("before the window")
+    with sync_free(dev):  # the first call, the capture and replays
+        steps(GRAPH_EVICT_AT - 1, one)
+    mark("after the window")
+    settle(one.tok)
+    eng.drop_device_copies(m)
+    mark("evicted")
+    eng.load(m)
+    steps(2, one)  # eager again, then a recapture
+    mark("recaptured")
+    timed("B 4", GRAPH_STEPS - GRAPH_EVICT_AT - 1, one)
+    inst2 = eng.start_instance(m, max_blocks_per_seq=64, num_pages=256)
+    tok2 = fed_or_greedy(inst2.prefill(batch, lengths=PROMPT_LENS[::-1]))
+
+    def fused():
+        a, b = eng.decode_many([(inst, fused.tok[:B]), (inst2, fused.tok[B:])])
+        return torch.cat([a, b])
+
+    fused.tok = torch.cat([one.tok, tok2])
+    steps(2, fused)
+    timed("decode_many B 8", GRAPH_STEPS - 2, fused)
+    mark("fused")
+    out["launches"] = ops.launch_counts()
+    # host time of one step alone at B 4 (its key is live on a graphed
+    # engine; the writes land at the instance's next position, rewritten by
+    # its next step)
+    params = eng.params_of(m)
+    args = (params, cfg, one.tok, inst._tables, inst._lengths)
+    out["host_us"] = math.nan  # a host time of CPU kernels says nothing of the card's
+    if g is None and dev.type == "cuda":
+        out["host_us"] = _host_us(lambda: _paged_decode_step(
+            *args, inst.slab.k_pages, inst.slab.v_pages), calls=4, repeats=3)
+    elif g is not None:
+        out["pool_bytes"] = g.pool_bytes()
+        if dev.type == "cuda":
+            replays = g.replays
+            out["host_us"] = _host_us(lambda: g.step(m, params, cfg, inst.slab, *args[2:],
+                                                     "kernel"), calls=50)
+            assert g.replays == replays + 250, (g.replays, replays)  # 5 x 50, all replays
+    inst.finish()
+    inst2.finish()
+    out["allocated"] = allocated(dev) - base
+    mark("finished")
+    return out
+
+
+def graphs_phase(cfg, weights, device="cuda") -> dict:
+    """`[graphs]`: llama3.2-1b at full width on two engines over the same
+    weights, one eager (``cuda_graphs=False``) and one graphed (the
+    default): `graph_run` on each, the graphed run fed the eager run's
+    tokens; logits equal step by step (bitwise, else within the bf16
+    tolerance with greedy ties), launches equal, a capture inside the
+    sync-error window, the graph dropped at the eviction and recaptured
+    after, device memory after `finish` equal to the eager engine's; capture
+    time, pool bytes, host time of a step; then `[profile]` of both."""
+    import torch
+
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.models import build_model
+    from repro_torch.serving.engine import Engine
+
+    dev, m = torch.device(device), cfg.name
+    cuda = dev.type == "cuda"
+    size = model_sizes({m: cfg})[m]
+    B, S = len(PROMPT_LENS), max(PROMPT_LENS)
+    batch = build_model(cfg).make_batch(torch.Generator().manual_seed(7),
+                                        ShapeConfig("graphs", S, B, "prefill"), device=dev)
+    runs = {}
+    for route in ("eager", "graphed"):
+        eng = Engine(size + 4 * KV_ROOM, device=dev, engine_id=route,
+                     cuda_graphs=route == "graphed")
+        eng.register(m, cfg, init_fn=lambda: weights)
+        eng.load(m)
+        if route == "graphed" and cuda:
+            assert eng.step_graphs is not None
+        fed = runs["eager"]["tokens"] if route == "graphed" else None
+        runs[route] = run = graph_run(eng, cfg, batch, fed)
+        run["engine"] = eng
+        log(f"[graphs] {route}: decode {run['walls']['B 4']:.3f} ms/step at B 4, "
+            f"decode_many {run['walls']['decode_many B 8']:.3f} ms/step at B 8 (replays only "
+            f"when graphed); host time of one B 4 step {run['host_us']:.2f} us; launches "
+            f"{json.dumps(run['launches'])}; device bytes allocated over the run after "
+            f"finish {run['allocated']}")
+    eager, graphed = runs["eager"], runs["graphed"]
+    L = cfg.num_layers
+    dispatches = 2 * GRAPH_STEPS
+    assert graphed["launches"] == eager["launches"], (graphed["launches"], eager["launches"])
+    if cuda:
+        assert eager["launches"] == {"paged_attention": L * dispatches,
+                                     "flash_attention": 2 * L}, eager["launches"]
+    bitwise, worst, flips = 0, 0.0, 0
+    for i, (e, gr) in enumerate(zip(eager["logits"], graphed["logits"])):
+        assert e.shape == gr.shape and bool(torch.isfinite(gr.float()).all()), i
+        if torch.equal(e, gr):
+            bitwise += 1
+            continue
+        err, scale = rel_err(gr, e), max(1.0, float(e.float().abs().max()))
+        worst = max(worst, err)
+        assert err <= TOL["bfloat16"], f"step {i}: graphed logits differ by {err} of scale"
+        et, gt = e.float().argmax(-1), gr.float().argmax(-1)
+        for b in torch.nonzero(et != gt).flatten().tolist():
+            gap = float(e[b, et[b]].float() - e[b, gt[b]].float())
+            assert gap <= TOL["bfloat16"] * scale, f"step {i} seq {b}: gap {gap}"
+            flips += 1
+    log(f"[graphs] graphed vs eager logits over {len(eager['logits'])} steps (B 4 then "
+        f"fused B 8): {bitwise} bitwise equal; the rest within {worst:.3e} of scale (tol "
+        f"{TOL['bfloat16']:g}), {flips} greedy ties")
+    g = graphed["engine"].step_graphs
+    if g is not None:
+        marks = dict((what, (caps, live)) for what, caps, live in graphed["graphs"])
+        log(f"[graphs] captures and live graphs: {json.dumps(marks)}; {graph_stats(g)}; "
+            f"live pools before finish {graphed['pool_bytes']} B")
+        assert marks["before the window"] == (0, 0), marks
+        assert marks["after the window"] == (1, 1), marks  # captured under "error"
+        assert marks["evicted"] == (1, 0), marks
+        assert marks["recaptured"] == (2, 1), marks
+        assert marks["fused"] == (3, 2) and marks["finished"] == (3, 0), marks
+    if cuda:
+        assert graphed["allocated"] == eager["allocated"], (graphed["allocated"],
+                                                            eager["allocated"])
+        before = torch.cuda.memory_reserved(dev)
+        torch.cuda.empty_cache()
+        log(f"[graphs] after finish the graphed engine holds {graphed['allocated']} B more "
+            f"than before its run, as the eager engine ({eager['allocated']} B); reserved "
+            f"{before} B, {torch.cuda.memory_reserved(dev)} B after empty_cache")
+        for route in ("eager", "graphed"):
+            profile_decode(runs[route]["engine"], cfg, batch)
+    for run in runs.values():
+        run["engine"].close()
+    return {route: {k: run[k] for k in ("walls", "host_us", "launches", "allocated")}
+            for route, run in runs.items()}
 
 
 # --------------------------------------------------------------- [examples]
@@ -2607,6 +2900,9 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     trace_phase(cfgs[TRACE_ARCH], weights[TRACE_ARCH])
     log(f"[phase] trace {time.perf_counter() - t0:.1f} s; {host_memory()}")
+    t0 = time.perf_counter()
+    graphs_phase(cfgs[TRACE_ARCH], weights[TRACE_ARCH])
+    log(f"[phase] graphs {time.perf_counter() - t0:.1f} s; {host_memory()}")
     # deepseek-7b's page-locked tree serves [dedup] and [migration] too
     big = weights.pop("deepseek-7b")
     del weights

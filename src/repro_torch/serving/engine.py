@@ -19,6 +19,13 @@ Fast paths (DESIGN.md §10), as in the reference:
     ElasticKV maps a new block, prefill KV lands in the slab as ONE in-place
     `index_copy_`, and `Engine.decode_many` fuses same-model instances into
     one dispatch.
+  * **Compiled decode step** — on CUDA the paged decode step is a CUDA
+    graph per specialisation, captured on its second call and replayed
+    after, shared by a model's instances (`step_graph.py`; the
+    reference's ``jax.jit``).  Graphs hold raw pointers, so the engine
+    drops a model's graphs wherever its params tree is re-assembled or
+    deleted, where its last instance finishes, where the slab grows, and
+    at `close` and `crash`.
 
 Where the reference donates buffers to a jitted scatter, the port updates
 the shared slab in place.  `SharedKVSlab.grow` reallocates, so every holder
@@ -78,6 +85,7 @@ from repro_torch.models.tensors import (HostTensorStore, ModelSpec, PersistentSt
                                         flatten_params, tensor_records,
                                         tree_structure, tree_unflatten)
 from repro_torch.obs import NULL_TRACER, BoundedLog
+from repro_torch.serving.step_graph import CudaGraphCapture, StepGraphs
 from repro_torch.stats import EngineFaultStats, snapshot_dict
 
 log = logging.getLogger(__name__)
@@ -648,9 +656,11 @@ class SharedKVSlab:
     interleave pages without coordination — the Unified Memory Pool already
     guarantees the offsets are disjoint."""
 
-    def __init__(self, k_pages: torch.Tensor, v_pages: torch.Tensor):
+    def __init__(self, k_pages: torch.Tensor, v_pages: torch.Tensor,
+                 on_grow: Optional[Callable[["SharedKVSlab"], None]] = None):
         self.k_pages = k_pages  # (L, P, T, K, hd)
         self.v_pages = v_pages
+        self.on_grow = on_grow  # called after the buffers moved
         self.page_map: dict[int, int] = {}  # pool offset -> page index
         self.free_pages: list[int] = []
         self._next_fresh = 0
@@ -694,6 +704,8 @@ class SharedKVSlab:
         zeros = self.k_pages.new_zeros((L, pad, T, K, hd))
         self.k_pages = torch.cat([self.k_pages, zeros], dim=1)
         self.v_pages = torch.cat([self.v_pages, zeros], dim=1)
+        if self.on_grow is not None:
+            self.on_grow(self)
 
 
 @dataclass
@@ -722,7 +734,12 @@ class KVMigration:
 
 
 class Engine:
-    """One worker's inference engine over a Unified Memory Pool."""
+    """One worker's inference engine over a Unified Memory Pool.
+
+    On CUDA the paged decode step runs as CUDA graphs shared by a model's
+    instances (`step_graph.StepGraphs`, the reference's ``jax.jit`` of
+    `_paged_decode_step`); ``cuda_graphs=False`` keeps it eager.  A CPU
+    engine never captures."""
 
     def __init__(self, capacity_bytes: int, *, costs: Optional[PhaseCosts] = None,
                  block_tokens: int = 16, chunk_bytes: int = 16 << 20,
@@ -733,7 +750,7 @@ class Engine:
                  engine_id: str = "engine0",
                  faults: Optional[FaultInjector] = None,
                  transfer_timeout_s: Optional[float] = None,
-                 tracer=None, device="cuda"):
+                 tracer=None, device="cuda", cuda_graphs: bool = True):
         self.device = resolve_device(device)
         if self.device.type not in ("cuda", "cpu"):
             raise ValueError(f"unsupported engine device {self.device}")
@@ -784,6 +801,9 @@ class Engine:
         self.migrated_in = 0
         self.migration_bytes = 0  # KV payload bytes shipped out of this engine
         self.last_load: Optional[DataLoadStats] = None
+        self.step_graphs: Optional[StepGraphs] = (
+            StepGraphs(_paged_decode_step, CudaGraphCapture(self.device))
+            if cuda_graphs and self.device.type == "cuda" else None)
 
     # ------------------------------------------------------------- registry
     def register_model(self, spec: ModelSpec | str, cfg: ModelConfig,
@@ -1080,6 +1100,7 @@ class Engine:
             # assemble the param tree from resident buffers (no copies) —
             # measured as the Profile phase of the TTFT split
             tp = _time.perf_counter()
+            self._drop_graphs(model_id=reg.model_id)  # they read the old tree
             self._params_cache[reg.model_id] = tree_unflatten(
                 reg.treedef, [self._tensors[r.fingerprint] for r in reg.records])
             stats.profile_seconds = _time.perf_counter() - tp
@@ -1127,11 +1148,18 @@ class Engine:
                                       deadlines=deadlines)
 
     def close(self):
-        """Release the engine's background resources (the prefetch worker).
-        Idempotent; an engine that issued hints holds a daemon thread that
-        references it, so long-lived processes churning engines should
-        close them."""
+        """Release the engine's background resources (the prefetch worker
+        and the captured decode steps).  Idempotent; an engine that issued
+        hints holds a daemon thread that references it, so long-lived
+        processes churning engines should close them."""
         self.prefetcher.close()
+        self._drop_graphs()
+
+    def _drop_graphs(self, **which):
+        """Free captured decode steps (`StepGraphs.drop`) before the params
+        tree or slab they point into moves."""
+        if self.step_graphs is not None:
+            self.step_graphs.drop(**which)
 
     # ----------------------------------------------------------- chaos plane
     def crash(self):
@@ -1166,6 +1194,7 @@ class Engine:
             self.fault_stats.prefetch_pins_dropped += len(orphaned)
         self.prefetcher.close()
         self._xfer.drain()
+        self._drop_graphs()
         for insts in self._live_instances.values():
             for inst in insts:
                 inst._drop_device_state()
@@ -1296,6 +1325,9 @@ class Engine:
             self._instances_of[model_id] = n
             return
         self._instances_of.pop(model_id, None)
+        # a graph's private pool is device memory outside the pool's
+        # capacity: it lives no longer than the model's instances
+        self._drop_graphs(model_id=model_id)
         self.store.release(model_id)
         self._unpin_model(model_id)
         self.sync_evictions(keep_active=True)
@@ -1327,6 +1359,7 @@ class Engine:
         for mid in list(self._params_cache):
             if mid not in active and any(r.fingerprint not in live
                                          for r in self.models[mid].records):
+                self._drop_graphs(model_id=mid)
                 del self._params_cache[mid]
 
     def params_of(self, model_id: str):
@@ -1356,7 +1389,8 @@ class Engine:
             shape = (L, num_pages, T, K, hd)
             slab = SharedKVSlab(
                 torch.zeros(shape, dtype=cfg.torch_dtype, device=self.device),
-                torch.zeros(shape, dtype=cfg.torch_dtype, device=self.device))
+                torch.zeros(shape, dtype=cfg.torch_dtype, device=self.device),
+                on_grow=lambda s: self._drop_graphs(slab=s))
             self._slabs[key] = slab
         else:
             slab.grow(num_pages)
@@ -1529,9 +1563,8 @@ class Engine:
             lengths = self.h2d(
                 np.concatenate([inst._host_lens for inst in insts]), torch.int32)
         tokens = torch.cat([tok for _, tok in group])
-        logits, new_lens = _paged_decode_step(
-            params, cfg, tokens, tables, lengths,
-            slab.k_pages, slab.v_pages, attn=insts[0].attn_mode)
+        logits, new_lens = self._paged_step(insts[0].reg.model_id, params, cfg, slab, tokens,
+                                            tables, lengths, insts[0].attn_mode)
         outs = []
         o = 0
         for inst, tok in group:
@@ -1547,6 +1580,15 @@ class Engine:
             tuple((inst.table_uploads, inst._step) for inst in insts),
             tables, new_lens)
         return outs
+
+    def _paged_step(self, model_id: str, params, cfg: ModelConfig, slab: SharedKVSlab,
+                    token, tables, lengths, attn: str):
+        """`_paged_decode_step` over `slab`: a replay of the model's captured
+        step on a CUDA engine (`StepGraphs.step`), else eager."""
+        if self.step_graphs is None:
+            return _paged_decode_step(params, cfg, token, tables, lengths, slab.k_pages,
+                                      slab.v_pages, attn=attn)
+        return self.step_graphs.step(model_id, params, cfg, slab, token, tables, lengths, attn)
 
 
 def _is_paged_family(cfg: ModelConfig) -> bool:
@@ -1712,9 +1754,9 @@ class Instance:
         if self._tables_stale:
             self._tables = eng.h2d(self._tables_np, torch.int32)
             self._tables_stale = False
-        logits, self._lengths = _paged_decode_step(
-            params, self.reg.cfg, token, self._tables, self._lengths,
-            self.slab.k_pages, self.slab.v_pages, attn=self.attn_mode)
+        logits, self._lengths = eng._paged_step(self.reg.model_id, params, self.reg.cfg,
+                                                self.slab, token, self._tables,
+                                                self._lengths, self.attn_mode)
         self._host_lens += 1
         return logits
 
@@ -1746,9 +1788,9 @@ class Instance:
             self._nblk[b] = len(pages)
         self._tables_np = tables_np
         self._tables = eng.h2d(tables_np, torch.int32)
-        logits, self._lengths = _paged_decode_step(
-            params, self.reg.cfg, token, self._tables, self._lengths,
-            self.slab.k_pages, self.slab.v_pages, attn=self.attn_mode)
+        logits, self._lengths = eng._paged_step(self.reg.model_id, params, self.reg.cfg,
+                                                self.slab, token, self._tables,
+                                                self._lengths, self.attn_mode)
         self._host_lens += 1
         return logits
 

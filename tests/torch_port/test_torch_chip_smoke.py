@@ -261,6 +261,39 @@ def test_trace_phase_rehearses_on_cpu(monkeypatch, tmp_path):
     assert sum(e["ph"] == "X" for e in doc["traceEvents"]) > 10
 
 
+@pytest.mark.parametrize("capture", ["off", "double"])
+def test_graphs_phase_rehearses_on_cpu(monkeypatch, capture):
+    """The [graphs] phase on the CPU over the llama3.2-1b stand-in, both
+    engines eager ("off": a CPU engine never captures), or the graphed one
+    capturing through the CPU double of a CUDA graph ("double"): every
+    step's logits equal, launches equal, the capture before the eviction,
+    the drop and the recapture."""
+    from repro_torch.serving import engine
+    from repro_torch.serving.step_graph import StepGraphs
+
+    from torch_port_helpers import RecordingCapture
+
+    cs = load_chip_smoke()
+    monkeypatch.setattr(cs, "PROMPT_LENS", (40, 30, 17, 5))
+    monkeypatch.setattr(cs, "GRAPH_STEPS", 8)
+    monkeypatch.setattr(cs, "GRAPH_EVICT_AT", 4)
+    count_plain_calls(monkeypatch)
+    if capture == "double":
+        class Graphed(engine.Engine):
+            def __init__(self, *a, cuda_graphs=True, **k):
+                super().__init__(*a, cuda_graphs=cuda_graphs, **k)
+                if cuda_graphs:
+                    self.step_graphs = StepGraphs(engine._paged_decode_step,
+                                                  RecordingCapture())
+
+        monkeypatch.setattr(engine, "Engine", Graphed)
+    cfgs, weights = tiny_models(cs)
+    out = cs.graphs_phase(cfgs["llama3.2-1b"], weights["llama3.2-1b"], "cpu")
+    L = cfgs["llama3.2-1b"].num_layers
+    assert out["eager"]["launches"] == out["graphed"]["launches"] == {
+        "paged_attention": L * 2 * 8, "flash_attention": L * 2}
+
+
 def test_examples_phase_rehearses_on_cpu(monkeypatch, tmp_path):
     """The [examples] phase on the CPU: the four ported examples as
     processes of their own, each exiting 0 with its own check's line

@@ -418,6 +418,10 @@ class _FreesEvicted:
         super().finish_instance(model_id)
         PortEngine.sync_evictions(self, keep_active=True)
 
+    def _drop_graphs(self, **which):
+        """`sync_evictions` drops the port's captured steps with a params
+        tree; the reference's compiled step holds no device pointers."""
+
 
 class RecRef(_Recording, _RefStart, RefEngine):
     pass

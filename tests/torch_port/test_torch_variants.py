@@ -60,6 +60,10 @@ class FreesEvictedRef(RefEngine):
         super().finish_instance(model_id)
         PortEngine.sync_evictions(self, keep_active=True)
 
+    def _drop_graphs(self, **which):
+        """`sync_evictions` drops the port's captured steps with a params
+        tree; the reference's compiled step holds no device pointers."""
+
 
 def cfgs(layers=2):
     over = dict(num_layers=layers, vocab_size=512, dtype="float32")

@@ -3,6 +3,8 @@ reference and the PyTorch port as numpy, in both directions."""
 import numpy as np
 import torch
 
+from repro_torch.kernels import ops
+
 # tests/test_kernels.py's tolerances: fp32 sums in another order, bf16 rounds
 # at other places in the two frameworks
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
@@ -77,3 +79,30 @@ def load_ledger(eng):
 def load_report(rep):
     return (rep.bytes_total, rep.bytes_transferred, rep.bytes_from_host,
             rep.bytes_from_store, rep.reuse_fraction, rep.load_seconds)
+
+
+class RecordingCapture:
+    """`serving.step_graph.CudaGraphCapture`'s double for a CPU engine: the
+    capture runs the eager step once (a real capture runs the step's
+    Python, whose wrappers count launches only a replay makes); a replay
+    reruns it into the static outputs without counting (a real replay runs
+    no Python)."""
+
+    def __init__(self):
+        self.replayed = 0
+
+    def __call__(self, fn):
+        outputs = fn()
+        rec = self
+
+        class Graph:
+            def replay(self):
+                fresh, _ = ops.launches_of(fn)
+                for static, new in zip(outputs, fresh):
+                    static.copy_(new)
+                rec.replayed += 1
+
+            def reset(self):
+                pass
+
+        return Graph(), outputs, 0
