@@ -85,9 +85,19 @@ run outside a checkout of the repository):
    recurrentgemma-9b (RG-LRU + local MQA at head dim 256), whisper-tiny
    (encoder-decoder, 1500 encoder frames) and mixtral-8x7b (MoE + SWA
    ring; 6 of its 32 layers), 512-token prompts, a seeded Poisson trace of
-   10 requests; then one prompt longer than the window per SWA model
-   (recurrentgemma-9b 2200, mixtral 4200) straight through `Engine`, over a
-   window-sized ring, each held against the plain attention path;
+   10 requests, the decode step a CUDA graph from a key's second call on
+   (the engine's default since PR 20), each model's graphed decode at B 1
+   after its capture against its weight-read floor and profiled; then one
+   prompt longer than the window per SWA model (recurrentgemma-9b 2200,
+   mixtral 4200) straight through `Engine`, over a window-sized ring, held
+   against the plain attention path on the eager step (the MoE router
+   replay sees every step) and the graphed run against the eager one; then
+   each model on an eager engine (``cuda_graphs=False``) and a graphed one
+   over the same weights, prompt 512 and 16 decode steps, the graphed run
+   fed the eager run's tokens: logits equal (bitwise, else within the bf16
+   tolerance), requested device bytes after `finish` equal, steady walls,
+   `[profile]` of both, each graph's capture time, private pool and the
+   bytes a replay copies;
 12. `[launcher]`: ``python -m repro_torch.launch.serve --trace poisson
    --n-engines 2 --chaos`` at the launcher's own smoke sizes, on the card;
 13. `[examples]`: the four ported examples (``python -m
@@ -729,10 +739,11 @@ def profile_steps(inst, prefill, steps: int, tag: str, what: str, decode_what: s
     profile_decode_steps(inst, tok, steps, tag, decode_what)
 
 
-def profile_decode_steps(inst, tok, steps: int, tag: str, what: str):
+def profile_decode_steps(inst, tok, steps: int, tag: str, what: str) -> dict:
     """torch.profiler over `steps` decode steps of `inst` from `tok`: wall,
     device busy time, the idle share, kernels a step, K1's share and the
-    largest kernels."""
+    largest kernels, logged and returned (empty where the profiler saw no
+    device events)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -746,7 +757,7 @@ def profile_decode_steps(inst, tok, steps: int, tag: str, what: str):
     by_name, n_kernels = _device_ms(prof, steps)
     if not by_name:
         log(f"[{tag}] decode: device time not measured (the profiler saw no CUDA events)")
-        return
+        return {}
     busy_ms = sum(by_name.values())
     k1_ms = sum(t for n, t in by_name.items()
                 if "paged_split_kernel" in n or "paged_combine_kernel" in n)
@@ -755,6 +766,9 @@ def profile_decode_steps(inst, tok, steps: int, tag: str, what: str):
         f"device busy {busy_ms:.3f} ms/step, idle share {1 - busy_ms / wall_ms:.3f}, "
         f"{n_kernels / steps:.0f} kernels/step, K1 (split + combine) {k1_ms:.3f} ms/step; top: "
         + "; ".join(f"{n[:60]} {t:.3f} ms" for n, t in top))
+    return {"wall_ms": wall_ms, "busy_ms": busy_ms, "idle": 1 - busy_ms / wall_ms,
+            "kernels": n_kernels / steps,
+            "copy_ms": sum(t for n, t in by_name.items() if n.startswith("Memcpy"))}
 
 
 def profile_decode(eng, cfg, batch, steps: int = 8):
@@ -1238,16 +1252,14 @@ STEADY_STEPS = 16
 
 
 def steady_decode(eng, cfgs, tag, prompt):
-    """Each paged model's decode at B 1 once its step is captured: a fresh
-    instance's prefill of the phase's prompt, the key's eager first call and
-    its capture, then `STEADY_STEPS` replays timed sync-free, against the
-    weight-read floor (`weight_floor`), and 8 more under the profiler."""
+    """Each model's decode at B 1 once its step is captured (the paged step,
+    or a state family's `Model.decode`): a fresh instance's prefill of the
+    phase's prompt, the key's eager first call and its capture, then
+    `STEADY_STEPS` replays timed sync-free, against the weight-read floor
+    (`weight_floor`), and 8 more under the profiler."""
     from repro_torch.serverless.gateway import greedy, make_prefill_batch, settle, sync_free
-    from repro_torch.serving.engine import _is_paged_family
 
     for m, cfg in cfgs.items():
-        if not _is_paged_family(cfg):
-            continue
         eng.load(m)
         inst = eng.start_instance(m)
         tok = settle(greedy(inst.prefill(make_prefill_batch(eng, m, prompt, 0))))
@@ -1266,7 +1278,10 @@ def steady_decode(eng, cfgs, tag, prompt):
             f"steps after the capture, {wall / floor:.2f}x its weight-read floor of "
             f"{floor:.3f} ms")
         if tok.device.type == "cuda":
-            profile_decode_steps(inst, tok, 8, tag, f"{m} B=1 {route}")
+            prof = profile_decode_steps(inst, tok, 8, tag, f"{m} B=1 {route}")
+            if prof:  # the profiler's own tracing lengthens the profiled wall
+                log(f"[{tag}] {m}: device busy {prof['busy_ms']:.3f} ms against the "
+                    f"unprofiled {wall:.3f} ms wall: idle share {1 - prof['busy_ms'] / wall:.3f}")
         inst.finish()
         eng.release(m)
 
@@ -1484,8 +1499,8 @@ def graph_run(eng, cfg, batch, fed=None) -> dict:
         out["pool_bytes"] = g.pool_bytes()
         if dev.type == "cuda":
             replays = g.replays
-            out["host_us"] = _host_us(lambda: g.step(m, params, cfg, inst.slab, *args[2:],
-                                                     "kernel"), calls=50)
+            out["host_us"] = _host_us(lambda: eng._paged_step(m, params, cfg, inst.slab,
+                                                              *args[2:], "kernel"), calls=50)
             assert g.replays == replays + 250, (g.replays, replays)  # 5 x 50, all replays
     inst.finish()
     inst2.finish()
@@ -1646,13 +1661,47 @@ def state_configs() -> dict:
     return cfgs
 
 
+@contextlib.contextmanager
+def eager_steps(eng):
+    """`eng`'s decode steps eager inside the block, as ``cuda_graphs=False``
+    runs them: a Python hook around a step (`router_choices`) sees only
+    eager calls.  No graph may be live on entry (the drop sites skip an
+    engine without graphs)."""
+    graphs = eng.step_graphs
+    assert graphs is None or not graphs.live(), [g.model_id for g in graphs.live()]
+    eng.step_graphs = None
+    try:
+        yield
+    finally:
+        eng.step_graphs = graphs
+
+
+def logits_match(tag, what, got, want) -> str:
+    """`got` against `want`, row by row: bitwise, else within the bf16
+    tolerance of scale; returns the count line."""
+    import torch
+
+    bitwise, worst = 0, 0.0
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert g.shape == w.shape and bool(torch.isfinite(g.float()).all()), (what, i)
+        if torch.equal(g, w):
+            bitwise += 1
+            continue
+        worst = max(worst, rel_err(g, w))
+        assert worst <= TOL["bfloat16"], f"{tag} {what} row {i}: {worst} of scale"
+    return (f"{bitwise} of {len(want)} bitwise equal, the rest within {worst:.3e} of scale "
+            f"(tol {TOL['bfloat16']:g})")
+
+
 def long_prompt_probe(eng, m: str, S: int, steps: int = SERVERLESS_GEN) -> dict:
     """One prompt of S tokens (longer than the model's window) straight
     through `Engine` at B 1, then `steps` greedy tokens: the prefill's K2
     launches counted, the decode sync-free over a window-sized ring; every
     logit row held against the plain attention path fed the same tokens
-    (a MoE model's plain run takes the kernel path's expert choices).
-    Returns the kernel path's launch counts."""
+    (a MoE model's plain run takes the kernel path's expert choices), both
+    on the eager step, so the router hook sees every step; then the graphed
+    step fed the same tokens, held against the eager kernel run.  Returns
+    the kernel path's launch counts."""
     import torch
 
     from repro_torch.configs import ShapeConfig
@@ -1679,11 +1728,12 @@ def long_prompt_probe(eng, m: str, S: int, steps: int = SERVERLESS_GEN) -> dict:
             prefill_s = time.perf_counter() - t0
         finally:
             ops.flash_attention = kernel
-        fed = [] if fed is None else fed
+        feeding = fed is not None
+        fed = fed if feeding else []
         t0 = time.perf_counter()
         with sync_free(eng.device):
             for i in range(steps):
-                if plain:  # the kernel path's tokens
+                if feeding:  # the eager kernel path's tokens
                     tok = fed[i]
                 else:
                     fed.append(tok)
@@ -1697,20 +1747,28 @@ def long_prompt_probe(eng, m: str, S: int, steps: int = SERVERLESS_GEN) -> dict:
 
     route = []
     record = router_choices(record=route) if cfg.is_moe else contextlib.nullcontext()
-    ops.reset_launch_counts()
-    with record:
-        outs, fed, ring, prefill_s, decode_s = run(False)
-    counts = ops.launch_counts()
     replay = router_choices(replay=route) if cfg.is_moe else contextlib.nullcontext()
-    with replay:
-        plain, _, _, _, _ = run(True, fed)
+    with eager_steps(eng):
+        ops.reset_launch_counts()
+        with record:
+            outs, fed, ring, prefill_s, decode_s = run(False)
+        counts = ops.launch_counts()
+        with replay:
+            plain, _, _, _, _ = run(True, fed)
+    replays = eng.step_graphs.replays if eng.step_graphs is not None else 0
+    graphed, _, _, _, graphed_s = run(False, fed)
+    if eng.step_graphs is not None:  # the first step eager, the second the capture
+        assert eng.step_graphs.replays - replays == steps - 1, (eng.step_graphs.replays,
+                                                                replays)
     worst = max(rel_err(a, b) for a, b in zip(outs, plain))
     window = cfg.sliding_window
     log(f"[state-families] {m} long probe: prompt {S} > window {window}, decode over a "
         f"{ring}-slot ring; prefill {prefill_s * 1e3:.3f} ms, decode "
-        f"{decode_s / steps * 1e3:.3f} ms/token (B 1, sync-free); launches "
-        f"{json.dumps(counts)}; {len(outs)} logit rows vs the plain attention path: "
-        f"max |diff| / scale {worst:.3e} (tol {TOL['bfloat16']:g})")
+        f"{decode_s / steps * 1e3:.3f} ms/token eager, {graphed_s / steps * 1e3:.3f} graphed "
+        f"(B 1, sync-free; the graphed run's first step eager, its second the capture); "
+        f"launches {json.dumps(counts)}; {len(outs)} logit rows vs the plain attention path "
+        f"(both eager): max |diff| / scale {worst:.3e} (tol {TOL['bfloat16']:g}); graphed vs "
+        f"eager: {logits_match('long probe', m, graphed, outs)}")
     assert ring == min(window, -(-S // eng.block_tokens) * eng.block_tokens) == window
     assert worst <= TOL["bfloat16"], (m, worst)
     want = kernel_launches(cfg, 1, steps)
@@ -1751,9 +1809,120 @@ def recurrence_timing(cfgs: dict):
         f"layer, {ms * mb.num_layers:.3f} ms for the {mb.num_layers} SSD layers of a prefill")
 
 
+STATE_GRAPH_STEPS = 16  # decode steps of the eager-against-graphed check
+STATE_GRAPH_WARM = 2  # untimed: on a graphed engine the key's eager first call and its capture
+STATE_GRAPH_PROFILED = 4  # steps under the profiler, whose event processing costs seconds
+
+
+def state_graph_run(cfg, weights, dev, graphed: bool, fed=None) -> dict:
+    """One model on its own engine (eager, or graphed: the default), over
+    the page-locked `weights`: a B 1 prefill of the phase's prompt, then
+    `STATE_GRAPH_STEPS` decode steps sync-free, the last ones timed, then
+    `STATE_GRAPH_PROFILED` more under the profiler.  `fed`: an earlier
+    run's tokens (else greedy).  Returns the logits, tokens, steady wall,
+    profile, requested device bytes after `finish`, an eager step's peak
+    growth and the graphs' costs."""
+    import torch
+
+    from repro_torch.serverless.gateway import greedy, make_prefill_batch, settle, sync_free
+    from repro_torch.serving.engine import Engine
+
+    m = cfg.name
+    eng = Engine(model_sizes({m: cfg})[m] + KV_ROOM, device=dev, cuda_graphs=graphed,
+                 engine_id="graphed" if graphed else "eager")
+    eng.register(m, cfg, init_fn=lambda: weights)
+    eng.load(m)
+    g = eng.step_graphs
+    batch = make_prefill_batch(eng, m, STATE_PROMPT, 0)
+    feed = iter(fed) if fed is not None else None
+    out = {"logits": [], "tokens": [], "peak_step": 0}
+
+    def take(logits):
+        out["logits"].append(logits)
+        # a fed token is copied, so both runs allocate what they hold
+        tok = next(feed).clone() if feed is not None else greedy(logits)
+        out["tokens"].append(tok)
+        return tok
+
+    base = allocated(dev)
+    inst = eng.start_instance(m)
+    tok = settle(take(inst.prefill(batch)))
+    with sync_free(dev):
+        if dev.type == "cuda" and g is None:  # what one eager step allocates at its peak
+            torch.cuda.reset_peak_memory_stats(dev)
+            before = torch.cuda.memory_allocated(dev)
+            tok = take(inst.decode(tok))
+            out["peak_step"] = torch.cuda.max_memory_allocated(dev) - before
+        while len(out["logits"]) <= STATE_GRAPH_WARM:
+            tok = take(inst.decode(tok))
+    settle(tok)
+    t0 = time.perf_counter()
+    with sync_free(dev):
+        for _ in range(STATE_GRAPH_STEPS - STATE_GRAPH_WARM):
+            tok = take(inst.decode(tok))
+    settle(tok)
+    out["wall_ms"] = (time.perf_counter() - t0) / (STATE_GRAPH_STEPS - STATE_GRAPH_WARM) * 1e3
+    out["profile"] = {}
+    if dev.type == "cuda":
+        out["profile"] = profile_decode_steps(inst, tok, STATE_GRAPH_PROFILED,
+                                              "state-families", f"{m} B=1 {eng.engine_id}")
+    if g is not None:
+        out["graphs"] = [(x.capture_seconds * 1e3, x.pool_bytes,
+                          sum(t.nbytes for t in x.inputs)
+                          + sum(t.nbytes for t, j in zip(x.outputs, x.passed) if j is None))
+                         for x in g.live(m)]
+    inst.finish()
+    out["allocated"] = allocated(dev) - base
+    eng.close()
+    return out
+
+
+def state_graphs_check(cfgs: dict, weights: dict, device="cuda"):
+    """Each non-paged model at full width on an eager engine and a graphed
+    one over the same weights (`state_graph_run`), the graphed run fed the
+    eager run's tokens: decode logits equal (bitwise, else within the bf16
+    tolerance), requested device bytes after `finish` equal; steady walls,
+    profiles and each graph's capture time, private pool and bytes a replay
+    copies (in, and out again) logged."""
+    import torch
+
+    dev = torch.device(device)
+    for m, cfg in cfgs.items():
+        eager = state_graph_run(cfg, weights[m], dev, False)
+        graphed = state_graph_run(cfg, weights[m], dev, True, eager["tokens"])
+        match = logits_match("state-families", m, graphed["logits"], eager["logits"])
+        log(f"[state-families] {m} eager vs graphed, B 1, prompt {STATE_PROMPT}, "
+            f"{STATE_GRAPH_STEPS} steps: logits {match}; steady decode {eager['wall_ms']:.3f} "
+            f"ms/token eager, {graphed['wall_ms']:.3f} graphed ("
+            f"{graphed['wall_ms'] / eager['wall_ms']:.3f} of eager) over the last "
+            f"{STATE_GRAPH_STEPS - STATE_GRAPH_WARM} steps; requested device bytes after "
+            f"finish {eager['allocated']} eager, {graphed['allocated']} graphed")
+        if dev.type != "cuda":
+            continue
+        for ms, pool, copied in graphed["graphs"]:
+            log(f"[state-families] {m} graph: capture {ms:.3f} ms, private pool {pool} B "
+                f"(an eager step's peak growth {eager['peak_step']} B), {copied} B copied a "
+                f"replay (inputs in, outputs out)")
+        e, gr = eager["profile"], graphed["profile"]
+        if e and gr:
+            # the profiler's own tracing lengthens a profiled wall: the idle
+            # share is also read against the unprofiled steady wall
+            unprofiled = [1 - r["profile"]["busy_ms"] / r["wall_ms"] for r in (eager, graphed)]
+            log(f"[state-families] {m} profiled step eager / graphed: wall {e['wall_ms']:.3f} "
+                f"/ {gr['wall_ms']:.3f} ms, busy {e['busy_ms']:.3f} / {gr['busy_ms']:.3f} ms, "
+                f"idle {e['idle']:.3f} / {gr['idle']:.3f} ({unprofiled[0]:.3f} / "
+                f"{unprofiled[1]:.3f} against the unprofiled walls), kernels "
+                f"{e['kernels']:.0f} / {gr['kernels']:.0f}, device copies {e['copy_ms']:.3f} / "
+                f"{gr['copy_ms']:.3f} ms")
+        assert len(graphed["graphs"]) == 1, graphed["graphs"]
+        assert graphed["allocated"] == eager["allocated"], (graphed["allocated"],
+                                                            eager["allocated"])
+
+
 def state_families_phase(cfgs: dict, weights: dict, device="cuda") -> dict:
     """`[state-families]`: the `Gateway` over the non-paged families, then a
-    long-prompt probe per SWA model on the same engine."""
+    long-prompt probe per SWA model on the same engine, then each model on
+    an eager and a graphed engine (`state_graphs_check`)."""
     from repro_torch.configs import get_config
 
     sizes = model_sizes(cfgs)
@@ -1769,9 +1938,11 @@ def state_families_phase(cfgs: dict, weights: dict, device="cuda") -> dict:
             profile_states(eng, list(cfgs))
         return counts
 
-    return serverless_phase(cfgs, weights, device, tag="state-families",
-                            trace_kw=STATE_TRACE, prompt=STATE_PROMPT, pool=pool,
-                            probe=probes)
+    counts = serverless_phase(cfgs, weights, device, tag="state-families",
+                              trace_kw=STATE_TRACE, prompt=STATE_PROMPT, pool=pool,
+                              probe=probes)
+    state_graphs_check(cfgs, weights, device)
+    return counts
 
 
 def host_tree(eng, m):

@@ -19,13 +19,14 @@ Fast paths (DESIGN.md §10), as in the reference:
     ElasticKV maps a new block, prefill KV lands in the slab as ONE in-place
     `index_copy_`, and `Engine.decode_many` fuses same-model instances into
     one dispatch.
-  * **Compiled decode step** — on CUDA the paged decode step is a CUDA
-    graph per specialisation, captured on its second call and replayed
-    after, shared by a model's instances (`step_graph.py`; the
-    reference's ``jax.jit``).  Graphs hold raw pointers, so the engine
-    drops a model's graphs wherever its params tree is re-assembled or
-    deleted, where its last instance finishes, where the slab grows, and
-    at `close` and `crash`.
+  * **Compiled decode steps** — on CUDA the paged decode step and the
+    state families' non-paged step (`Model.decode`) are CUDA graphs per
+    specialisation, captured on a key's second call and replayed after,
+    shared by a model's instances (`step_graph.py`; the reference's
+    ``jax.jit`` of the paged step and its compiled layer scan).  Graphs
+    hold raw pointers, so the engine drops a model's graphs wherever its
+    params tree is re-assembled or deleted, where its last instance
+    finishes, where the slab grows, and at `close` and `crash`.
 
 Where the reference donates buffers to a jitted scatter, the port updates
 the shared slab in place.  `SharedKVSlab.grow` reallocates, so every holder
@@ -736,10 +737,11 @@ class KVMigration:
 class Engine:
     """One worker's inference engine over a Unified Memory Pool.
 
-    On CUDA the paged decode step runs as CUDA graphs shared by a model's
+    On CUDA both decode steps (the paged `_paged_decode_step` and the
+    state families' `Model.decode`) run as CUDA graphs shared by a model's
     instances (`step_graph.StepGraphs`, the reference's ``jax.jit`` of
-    `_paged_decode_step`); ``cuda_graphs=False`` keeps it eager.  A CPU
-    engine never captures."""
+    `_paged_decode_step` and its compiled layer scan); ``cuda_graphs=False``
+    keeps them eager.  A CPU engine never captures."""
 
     def __init__(self, capacity_bytes: int, *, costs: Optional[PhaseCosts] = None,
                  block_tokens: int = 16, chunk_bytes: int = 16 << 20,
@@ -802,7 +804,7 @@ class Engine:
         self.migration_bytes = 0  # KV payload bytes shipped out of this engine
         self.last_load: Optional[DataLoadStats] = None
         self.step_graphs: Optional[StepGraphs] = (
-            StepGraphs(_paged_decode_step, CudaGraphCapture(self.device))
+            StepGraphs(CudaGraphCapture(self.device))
             if cuda_graphs and self.device.type == "cuda" else None)
 
     # ------------------------------------------------------------- registry
@@ -1585,10 +1587,36 @@ class Engine:
                     token, tables, lengths, attn: str):
         """`_paged_decode_step` over `slab`: a replay of the model's captured
         step on a CUDA engine (`StepGraphs.step`), else eager."""
+        k_pages, v_pages = slab.k_pages, slab.v_pages
         if self.step_graphs is None:
-            return _paged_decode_step(params, cfg, token, tables, lengths, slab.k_pages,
-                                      slab.v_pages, attn=attn)
-        return self.step_graphs.step(model_id, params, cfg, slab, token, tables, lengths, attn)
+            return _paged_decode_step(params, cfg, token, tables, lengths, k_pages, v_pages,
+                                      attn=attn)
+        return self.step_graphs.step(
+            model_id, lambda tok, tab, lens: _paged_decode_step(params, cfg, tok, tab, lens,
+                                                                k_pages, v_pages, attn=attn),
+            (cfg, attn), (token, tables, lengths), params=params, baked=(k_pages, v_pages),
+            slab=slab)
+
+    def _state_step(self, model_id: str, params, cfg: ModelConfig, token, pos, cache):
+        """`Model.decode` of a state family (rings, recurrence states,
+        Whisper's decoder): a replay of the model's captured step on a CUDA
+        engine (`StepGraphs.step`, the cache's leaves flat), else eager.
+        The input cache is untouched; the returned one is fresh, but for
+        leaves the step passes through (Whisper's cross caches), which are
+        the caller's own."""
+        model = build_model(cfg)
+        if self.step_graphs is None:
+            return model.decode(params, token, pos, cache)
+        structure = tree_structure(cache)
+
+        def step(tok, p, *leaves):
+            logits, new = model.decode(params, tok, p, tree_unflatten(structure, leaves))
+            return (logits, *(t for _, t in flatten_params(new)))
+
+        logits, *leaves = self.step_graphs.step(
+            model_id, step, (cfg,), (token, pos, *(t for _, t in flatten_params(cache))),
+            params=params)
+        return logits, tree_unflatten(structure, leaves)
 
 
 def _is_paged_family(cfg: ModelConfig) -> bool:
@@ -1744,8 +1772,8 @@ class Instance:
             self._lengths = eng.h2d(self._host_lens, torch.int32)
             self._lengths_stale = False
         if not self.paged:
-            logits, self._cache = self.model.decode(params, token,
-                                                    self._lengths, self._cache)
+            logits, self._cache = eng._state_step(self.reg.model_id, params, self.reg.cfg,
+                                                  token, self._lengths, self._cache)
             self._lengths = self._lengths + 1
             self._host_lens += 1
             return logits

@@ -1,22 +1,36 @@
-"""The compiled paged decode step: CUDA graphs of `_paged_decode_step`,
-shared by every instance of a model on one engine (port-only; the
-reference's counterpart is ``jax.jit`` on `repro/serving/engine.py`
-`_paged_decode_step`, one compiled, buffer-donating program a step).
+"""The compiled decode steps: CUDA graphs of the engine's two decode steps,
+shared by every instance of a model on one engine (port-only).
 
-A graph is keyed by what ``jax.jit`` specialises on (`cfg`, `attn`, and
-the shapes and dtypes of the token, the block tables, the lengths and the
-KV slab: B, the table width N and the page count P) and by what a graph
-bakes in and a jit does not: the identity of the params tree it read and
-the slab's storage.  Instances of one model read one tree and one slab, so
-they share a key.  The first call for a key runs eagerly and is the
-answer; the second captures and replays; later calls replay.
+- The paged step, `_paged_decode_step`; the reference's counterpart is
+  ``jax.jit`` on `repro/serving/engine.py` `_paged_decode_step`, one
+  compiled, buffer-donating program a step.
+- The non-paged step of the state families (`Model.decode`: SWA rings,
+  recurrence states, Whisper's decoder); the reference's counterpart is the
+  ``jax.lax.scan`` over each segment's layers (`repro/models/lm.py`
+  `decode_step`, `repro/models/encdec.py` `decode_step`), which runs as one
+  compiled XLA program a segment even outside ``jit``.  The reference
+  traces and compiles that scan again on every call (a fresh body closure
+  each step); a graph here is captured once per key and replayed.
 
-A replay copies the caller's token, tables and lengths into the graph's
-static input buffers on the current stream (device to device: the step
-never reads the device back), replays, adds the launches the capture's
-wrappers counted (`ops.count_launches`), and returns clones of the static
-outputs: the next replay of the key, which may be another instance's,
-overwrites them, as the reference returns fresh arrays.
+A step is a function of a flat list of input tensors returning a flat list
+of output tensors.  A graph is keyed by what ``jax.jit`` specialises on
+(the static arguments, and the shape and dtype of every input tensor and of
+every tensor the step reads or writes in place) and by what a graph bakes
+in and a jit does not: the identity of the params tree it read and the
+storage of the tensors it reads in place (the paged step's KV slab).
+Instances of one model read one tree (and one slab), so they share a key.
+The first call for a key runs eagerly and is the answer; the second
+captures and replays; later calls replay.
+
+A replay copies the caller's inputs into the graph's static input buffers
+on the current stream (device to device: the step never reads the device
+back), replays, adds the launches the capture's wrappers counted
+(`ops.count_launches`), and returns clones of the static outputs: the next
+replay of the key, which may be another instance's, overwrites them, as
+the reference returns fresh arrays.  An output that is one of the step's
+inputs, unchanged (Whisper's cross-attention caches), is handed back as the
+caller's own tensor, found at capture by identity, never as the static
+buffer.
 
 A graph holds raw pointers, not tensors.  The engine drops a model's
 graphs wherever its params tree is written or deleted, where its last
@@ -31,7 +45,7 @@ from __future__ import annotations
 import contextlib
 import time
 from dataclasses import dataclass, field
-from typing import Any, Callable, Optional
+from typing import Any, Callable, Optional, Sequence
 
 import torch
 
@@ -40,11 +54,11 @@ from repro_torch.kernels import ops as kops
 GRAPH_LIMIT = 64  # live keys per engine, as the engine bounds its fused-state cache
 
 
-def shape_key(cfg, attn: str, *tensors: torch.Tensor) -> tuple:
-    """What ``jax.jit`` specialises `_paged_decode_step` on: the static
-    arguments and each array argument's shape and dtype (the params' shapes
-    follow from `cfg`)."""
-    return (cfg, attn) + tuple((tuple(t.shape), t.dtype) for t in tensors)
+def shape_key(static: tuple, tensors: Sequence[torch.Tensor]) -> tuple:
+    """What ``jax.jit`` specialises a step on: its static arguments and each
+    array argument's shape and dtype (the params' shapes follow from the
+    config among the static arguments)."""
+    return tuple(static) + tuple((tuple(t.shape), t.dtype) for t in tensors)
 
 
 class CudaGraphCapture:
@@ -99,26 +113,25 @@ class StepGraph:
     """One key's state: seen once (`graph` None), or captured."""
 
     model_id: str
-    slab: Any  # the engine's SharedKVSlab the graph reads and writes
+    slab: Any  # the engine's SharedKVSlab the graph reads and writes, or None
     graph: Any = None
-    inputs: tuple = ()  # static token, tables, lengths
-    outputs: tuple = ()  # static logits, lengths + 1
+    inputs: tuple = ()  # static input buffers
+    outputs: tuple = ()  # static outputs
+    passed: tuple = ()  # per output: the index of the input it is, or None
     launches: dict = field(default_factory=dict)  # kernel launches a replay makes
     pool_bytes: int = 0
+    capture_seconds: float = 0.0
 
 
 class StepGraphs:
     """An engine's captured decode steps.
 
-    `step_fn` is the eager step, ``step_fn(params, cfg, token, tables,
-    lengths, k_pages, v_pages, attn=...) -> (logits, lengths + 1)``;
     `capture(fn)` returns ``(graph, outputs, pool_bytes)`` where
     ``graph.replay()`` reruns the captured work into `outputs` and
     ``graph.reset()`` frees it (`CudaGraphCapture`; tests inject a double
     that runs the eager step)."""
 
-    def __init__(self, step_fn: Callable, capture: Callable, limit: int = GRAPH_LIMIT):
-        self.step_fn = step_fn
+    def __init__(self, capture: Callable, limit: int = GRAPH_LIMIT):
         self.capture = capture
         self.limit = limit
         self._graphs: dict[tuple, StepGraph] = {}
@@ -143,10 +156,16 @@ class StepGraphs:
         outside the ReuseStore's capacity."""
         return sum(g.pool_bytes for g in self.live())
 
-    def step(self, model_id: str, params, cfg, slab, token, tables, lengths, attn: str):
-        k_pages, v_pages = slab.k_pages, slab.v_pages
-        shape = shape_key(cfg, attn, token, tables, lengths, k_pages, v_pages)
-        key = shape + (id(params), k_pages.data_ptr(), v_pages.data_ptr())
+    def step(self, model_id: str, fn: Callable, static: tuple,
+             inputs: Sequence[torch.Tensor], *, params, baked: Sequence[torch.Tensor] = (),
+             slab: Any = None) -> tuple:
+        """``fn(*inputs)``, a tuple of tensors, for `model_id`'s step over
+        `params`: eager on a key's first call, captured on its second,
+        replayed after.  `static`: the step's static arguments; `baked`:
+        tensors `fn` reads or writes in place, not copied (their storage is
+        part of the key); `slab`: what `drop(slab=)` matches."""
+        shape = shape_key(static, (*inputs, *baked))
+        key = shape + (id(params), *(t.data_ptr() for t in baked))
         self.shapes.add(shape)
         g = self._graphs.get(key)
         if g is None:
@@ -154,28 +173,28 @@ class StepGraphs:
                 self._free(self._graphs.pop(next(iter(self._graphs))))
             self._graphs[key] = StepGraph(model_id, slab)
             self.eager_steps += 1
-            return self.step_fn(params, cfg, token, tables, lengths, k_pages, v_pages,
-                                attn=attn)
+            return tuple(fn(*inputs))
         if g.graph is None:
-            self._capture(g, params, cfg, token, tables, lengths, k_pages, v_pages, attn)
-        for dst, src in zip(g.inputs, (token, tables, lengths)):
+            self._capture(g, fn, inputs)
+        for dst, src in zip(g.inputs, inputs):
             dst.copy_(src)
         g.graph.replay()
         kops.count_launches(g.launches)
         self.replays += 1
-        logits, new_lens = g.outputs
-        return logits.clone(), new_lens.clone()
+        return tuple(out.clone() if j is None else inputs[j]
+                     for out, j in zip(g.outputs, g.passed))
 
-    def _capture(self, g: StepGraph, params, cfg, token, tables, lengths, k_pages, v_pages,
-                 attn):
-        g.inputs = (token.clone(), tables.clone(), lengths.clone())
-        tok, tab, lens = g.inputs
+    def _capture(self, g: StepGraph, fn: Callable, inputs: Sequence[torch.Tensor]):
+        g.inputs = tuple(t.clone() for t in inputs)
         t0 = time.perf_counter()
-        (g.graph, g.outputs, g.pool_bytes), g.launches = kops.launches_of(
-            lambda: self.capture(lambda: self.step_fn(params, cfg, tok, tab, lens, k_pages,
-                                                      v_pages, attn=attn)))
+        (g.graph, outputs, g.pool_bytes), g.launches = kops.launches_of(
+            lambda: self.capture(lambda: tuple(fn(*g.inputs))))
+        g.outputs = tuple(outputs)
+        g.passed = tuple(next((j for j, t in enumerate(g.inputs) if out is t), None)
+                         for out in g.outputs)
+        g.capture_seconds = time.perf_counter() - t0
         self.captures += 1
-        self.capture_seconds += time.perf_counter() - t0
+        self.capture_seconds += g.capture_seconds
         self.pool_bytes_captured += g.pool_bytes
 
     def drop(self, *, model_id: Optional[str] = None, slab: Any = None):
@@ -190,4 +209,4 @@ class StepGraphs:
         if g.graph is not None:
             g.graph.reset()
             self.dropped += 1
-        g.graph, g.inputs, g.outputs = None, (), ()
+        g.graph, g.inputs, g.outputs, g.passed = None, (), (), ()

@@ -197,7 +197,45 @@ def test_state_families_phase_rehearses_on_cpu(monkeypatch):
     the seeded trace's warm, full h2d and partial-reuse starts and the pool
     rule, every load's bytes, the first requests against the plain
     attention, launches by model (K2 per attention layer, the encoder's
-    too; no K1), then the long-prompt probes over window-sized rings."""
+    too; no K1), then the long-prompt probes over window-sized rings and
+    the eager-against-graphed check (both eager: a CPU engine never
+    captures)."""
+    rehearse_state_families(monkeypatch)
+
+
+def test_state_families_phase_rehearses_graphed_on_cpu(monkeypatch):
+    """The same phase with the engines' state steps captured through the
+    CPU double of a CUDA graph: the gateway's decode replays, the long
+    probes hold their eager pair (`eager_steps`) and then replay, the
+    check's graphed engine replays, and every count and hold is as eager."""
+    made = capture_through_double(monkeypatch)
+    rehearse_state_families(monkeypatch)
+    assert made and all(g.replays > 0 and not g.live() for g in made)
+
+
+def capture_through_double(monkeypatch) -> list:
+    """Engines built with ``cuda_graphs=True`` (the default) capture their
+    decode steps through `RecordingCapture`, the CPU double of a CUDA
+    graph; returns their `StepGraphs`, as the engines are built."""
+    from repro_torch.serving import engine
+    from repro_torch.serving.step_graph import StepGraphs
+
+    from torch_port_helpers import RecordingCapture
+
+    made = []
+
+    class Graphed(engine.Engine):
+        def __init__(self, *a, cuda_graphs=True, **k):
+            super().__init__(*a, cuda_graphs=cuda_graphs, **k)
+            if cuda_graphs:
+                self.step_graphs = StepGraphs(RecordingCapture())
+                made.append(self.step_graphs)
+
+    monkeypatch.setattr(engine, "Engine", Graphed)
+    return made
+
+
+def rehearse_state_families(monkeypatch):
     from collections import Counter
 
     from repro_torch.configs import get_config
@@ -268,25 +306,13 @@ def test_graphs_phase_rehearses_on_cpu(monkeypatch, capture):
     capturing through the CPU double of a CUDA graph ("double"): every
     step's logits equal, launches equal, the capture before the eviction,
     the drop and the recapture."""
-    from repro_torch.serving import engine
-    from repro_torch.serving.step_graph import StepGraphs
-
-    from torch_port_helpers import RecordingCapture
-
     cs = load_chip_smoke()
     monkeypatch.setattr(cs, "PROMPT_LENS", (40, 30, 17, 5))
     monkeypatch.setattr(cs, "GRAPH_STEPS", 8)
     monkeypatch.setattr(cs, "GRAPH_EVICT_AT", 4)
     count_plain_calls(monkeypatch)
     if capture == "double":
-        class Graphed(engine.Engine):
-            def __init__(self, *a, cuda_graphs=True, **k):
-                super().__init__(*a, cuda_graphs=cuda_graphs, **k)
-                if cuda_graphs:
-                    self.step_graphs = StepGraphs(engine._paged_decode_step,
-                                                  RecordingCapture())
-
-        monkeypatch.setattr(engine, "Engine", Graphed)
+        capture_through_double(monkeypatch)
     cfgs, weights = tiny_models(cs)
     out = cs.graphs_phase(cfgs["llama3.2-1b"], weights["llama3.2-1b"], "cpu")
     L = cfgs["llama3.2-1b"].num_layers

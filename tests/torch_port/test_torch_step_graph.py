@@ -23,7 +23,7 @@ import torch  # noqa: E402
 from repro_torch.configs import get_config as port_config  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.models.tensors import VariantSpec  # noqa: E402
-from repro_torch.serving.engine import Engine, _paged_decode_step  # noqa: E402
+from repro_torch.serving.engine import Engine  # noqa: E402
 from repro_torch.serving.step_graph import StepGraphs  # noqa: E402
 
 from torch_port_helpers import RecordingCapture  # noqa: E402
@@ -39,7 +39,7 @@ def engine(graphed: bool, cap=256 << 20, models=(("m", 2),), **kw) -> Engine:
     for mid, layers in models:
         eng.register(mid, cfg(layers))
     if graphed:
-        eng.step_graphs = StepGraphs(_paged_decode_step, RecordingCapture())
+        eng.step_graphs = StepGraphs(RecordingCapture())
     return eng
 
 
@@ -182,7 +182,7 @@ def test_a_failed_capture_raises():
             raise RuntimeError("capture refused")
 
     eng = engine(False)
-    eng.step_graphs = StepGraphs(_paged_decode_step, Refuses())
+    eng.step_graphs = StepGraphs(Refuses())
     eng.load("m")
     a, ta = started(eng)
     a.decode(ta)
@@ -345,7 +345,7 @@ def test_shape_keys_match_reference_jit_specialisations():
     rc = dataclasses.replace(ref_config("llama3.2-1b").smoke(), num_layers=2,
                              vocab_size=512, dtype="float32")
     ref, port, _ = paired_engines({"m": (rc, cfg(2), 3)}, 256 << 20)
-    port.step_graphs = StepGraphs(_paged_decode_step, RecordingCapture())
+    port.step_graphs = StepGraphs(RecordingCapture())
     ref_engine._paged_decode_step.clear_cache()
     toks = [np.random.default_rng(s).integers(0, 512, (4, 24)).astype(np.int32)
             for s in (1, 2)]

@@ -85,8 +85,10 @@ class RecordingCapture:
     """`serving.step_graph.CudaGraphCapture`'s double for a CPU engine: the
     capture runs the eager step once (a real capture runs the step's
     Python, whose wrappers count launches only a replay makes); a replay
-    reruns it into the static outputs without counting (a real replay runs
-    no Python)."""
+    reruns it into the static outputs, a flat list of tensors, without
+    counting (a real replay runs no Python).  An output that is one of the
+    step's static inputs is copied onto itself, as a real replay leaves
+    it."""
 
     def __init__(self):
         self.replayed = 0
