@@ -38,11 +38,17 @@ run outside a checkout of the repository):
    16 greedy tokens) under a fixed 10 s keep-alive: warm starts, full h2d
    cold starts and cold starts that reuse part of the model from the pool.
    Every load's bytes are checked against the model's, the first request of
-   each model is held against the plain attention path (its first decode
-   step, the eager first call of its key, so a MoE model's router replay
-   sees every step), launch counts against the requests, each model's
-   graphed decode at B 1 after its capture against its weight-read floor,
-   and a crash must give the card's memory back;
+   each model is held against the plain attention path (a MoE model's on
+   the eager step, so its router replay sees every step), launch counts
+   against the requests, each model's graphed decode at B 1 after its
+   capture against its weight-read floor, and a crash must give the card's
+   memory back.  A model's compiled decode steps outlive its requests while
+   its params tree stays assembled: each request's line gives the eager
+   steps, captures and replays its decode made, every request whose model's
+   tree and slab are unchanged since its previous request must make 0
+   eager steps and 0 captures, and each model's first such request is run
+   again on the eager step over the same prompt and tokens (bitwise, else
+   within the bf16 tolerance); the gateway phases below do the same;
 5. `[fleet]`: `FleetGateway` over two engines on the card under the seeded
    `chaos_schedule` (an h2d stall and a prefetch-worker death per engine, a
    crash and a recovery), host tiers bounded so that released tensors
@@ -59,8 +65,10 @@ run outside a checkout of the repository):
    copies dropped and reloaded before step 16, the graph with them, then
    recaptured) and 32 fused B 8 steps, the graphed run fed the eager run's
    tokens: logits equal (bitwise, else within the bf16 tolerance), launches
-   equal, device memory after `finish` the eager engine's; capture time,
-   pool bytes, host time of a step, steady walls, and `[profile]` of both;
+   equal, device memory after `finish` the eager engine's plus the two keys
+   that outlive the instances (within the budget), and the eager engine's
+   after `close`; capture time, pool bytes, host time of a step, steady
+   walls, and `[profile]` of both;
 7. `[dedup]`: deepseek-7b and three fine-tune variants registered with
    `Engine.register_variant` (delta leaves: the layer-stacked wq and wo).
    With the base resident, each variant's cold load moves exactly its delta
@@ -95,9 +103,12 @@ run outside a checkout of the repository):
    each model on an eager engine (``cuda_graphs=False``) and a graphed one
    over the same weights, prompt 512 and 16 decode steps, the graphed run
    fed the eager run's tokens: logits equal (bitwise, else within the bf16
-   tolerance), requested device bytes after `finish` equal, steady walls,
+   tolerance), requested device bytes after `finish` the eager engine's
+   plus the live key's tensors and equal after `close`, steady walls,
    `[profile]` of both, each graph's capture time, private pool and the
-   bytes a replay copies;
+   bytes a replay copies; and mamba2-2.7b's replays on the gateway engine
+   profiled with its prefetch worker idle and then promoting spilled
+   leaves (`prefetch_probe`);
 12. `[launcher]`: ``python -m repro_torch.launch.serve --trace poisson
    --n-engines 2 --chaos`` at the launcher's own smoke sizes, on the card;
 13. `[examples]`: the four ported examples (``python -m
@@ -946,13 +957,29 @@ def device_bytes(eng) -> int:
     return sum(storages.values())
 
 
+# PyTorch's CUDA generator holds a graph-safe seed and offset (two int64
+# tensors) while any graph is registered with it
+RNG_GRAPH_STATE_BYTES = 16
+
+
+def live_bytes(g) -> int:
+    """Device bytes the live keys of `g` account for: their static tensors
+    (`StepGraphs.static_bytes`) and the generator's graph state."""
+    return g.static_bytes() + (RNG_GRAPH_STATE_BYTES if g.live() else 0)
+
+
 def recording_engine():
     """`Engine` that ledgers every load, counts each model's kernel launches
     (the launch counters read when an instance starts and when it finishes),
     and keeps, for the first instance of each model, the prompt batch, the
     fed token and clones of the first prefill and decode logits (device
-    copies: no host read).  The hooks hold their instance weakly, so a
-    finished instance is freed at once."""
+    copies: no host read).  Per instance it records the eager steps,
+    captures and replays its decode made (`requests`) and whether it found
+    its key live: the model's params tree and slab unchanged since its
+    previous instance, which decoded long enough to capture; for the first
+    such instance of each model it keeps the prompt, the fed tokens and
+    every decode logit (`live_first`).  The hooks hold their instance
+    weakly, so a finished instance is freed at once."""
     import weakref
 
     from repro_torch.kernels import ops
@@ -963,6 +990,12 @@ def recording_engine():
             super().__init__(*args, **kw)
             self.loads, self.first = [], {}
             self.launches, self._launches_at = {}, {}
+            self.requests, self.live_first = [], {}
+            self._graphs_at, self._key_of = {}, {}
+
+        def _graph_counts(self):
+            g = self.step_graphs
+            return (0, 0, 0) if g is None else (g.eager_steps, g.captures, g.replays)
 
         def load(self, model_id, **kw):
             rep = super().load(model_id, **kw)
@@ -971,6 +1004,12 @@ def recording_engine():
 
         def finish_instance(self, model_id):
             super().finish_instance(model_id)
+            started = self._graphs_at.pop(model_id, None)
+            if started is not None:
+                counts, live = started
+                made = [n - n0 for n, n0 in zip(self._graph_counts(), counts)]
+                self.requests.append(dict(zip(("eager", "captures", "replays"), made),
+                                          model=model_id, live=live))
             at = self._launches_at.pop(model_id, None)
             if at is None:  # an instance the crash already dropped
                 return
@@ -981,6 +1020,13 @@ def recording_engine():
         def start_instance(self, model_id, **kw):
             self._launches_at[model_id] = ops.launch_counts()
             inst = super().start_instance(model_id, **kw)
+            key = (self._tree_of.get(model_id),
+                   None if inst.slab is None else inst.slab.k_pages.data_ptr())
+            live = self.step_graphs is not None and self._key_of.get(model_id) == key
+            self._key_of[model_id] = key
+            self._graphs_at[model_id] = (self._graph_counts(), live)
+            if live and model_id not in self.live_first:
+                self._keep_live(model_id, inst, kw)
             if model_id in self.first:
                 return inst
             rec = self.first[model_id] = {}
@@ -1000,6 +1046,22 @@ def recording_engine():
 
             inst.prefill, inst.decode = first_prefill, first_decode
             return inst
+
+        def _keep_live(self, model_id, inst, kw):
+            rec = self.live_first[model_id] = {"kw": kw, "tokens": [], "decode": []}
+            ref = weakref.ref(inst)
+
+            def prefill(batch, **k):
+                rec.update(batch=batch, prefill_kw=k)
+                return type(ref()).prefill(ref(), batch, **k)
+
+            def decode(tok):
+                out = type(ref()).decode(ref(), tok)
+                rec["tokens"].append(tok.clone())
+                rec["decode"].append(out.detach().clone())
+                return out
+
+            inst.prefill, inst.decode = prefill, decode
 
     return RecordingEngine
 
@@ -1093,38 +1155,72 @@ def hold_first_tokens(eng, names, tag="serverless"):
     A MoE model's plain run takes the expert choices of a rerun of its
     kernel path (which must give the first request's logits again)."""
     worst = {}
-    graphs = eng.step_graphs
-    replays = graphs.replays if graphs is not None else 0
     for m in names:
         rec = eng.first[m]
         eng.load(m)
         route = []
         held = rec
-        if eng.models[m].cfg.is_moe:
-            with router_choices(record=route):
-                held = first_logits(eng, m, rec["batch"], rec["token"])
-            for step in ("prefill", "decode"):
-                err = rel_err(held[step], rec[step])
-                worst[(m, f"{step} rerun")] = err
-                assert err <= TOL["bfloat16"], f"{m} {step} rerun: {err}"
-        replay = router_choices(replay=route) if route else contextlib.nullcontext()
-        with replay:
-            plain = first_logits(eng, m, rec["batch"], rec["token"], plain=True)
+        moe = eng.models[m].cfg.is_moe
+        # a MoE model's runs on the eager step, so the router hook sees it
+        with eager_steps(eng) if moe else contextlib.nullcontext():
+            if moe:
+                with router_choices(record=route):
+                    held = first_logits(eng, m, rec["batch"], rec["token"])
+                for step in ("prefill", "decode"):
+                    err = rel_err(held[step], rec[step])
+                    worst[(m, f"{step} rerun")] = err
+                    assert err <= TOL["bfloat16"], f"{m} {step} rerun: {err}"
+            replay = router_choices(replay=route) if route else contextlib.nullcontext()
+            with replay:
+                plain = first_logits(eng, m, rec["batch"], rec["token"], plain=True)
         eng.release(m)
         for step, want in plain.items():
             worst[(m, step)] = err = rel_err(held[step], want)
             assert err <= TOL["bfloat16"], f"{m} {step}: logits differ by {err} of scale"
-    # each run decodes one step of a fresh instance: its key's eager first
-    # call (a model's graphs go with its last instance), so the router hook
-    # saw every step
-    assert graphs is None or graphs.replays == replays, (graphs.replays, replays)
     log(f"[{tag}] first request of each model vs the plain attention path: "
         + ", ".join(f"{m} {step} {e:.3e}" for (m, step), e in worst.items())
         + f" (max |diff| / scale, tol {TOL['bfloat16']:g})")
 
 
-def _load_line(i, rec, load, size) -> str:
+def hold_live_requests(eng, tag):
+    """Each model's first request on a live key (its decode replayed from
+    the first step) run again on the eager step, over the same prompt and
+    the same fed tokens: its logits bitwise equal, else within the bf16
+    tolerance of scale, and each greedy token it fed the eager step's, or a
+    tie within that tolerance."""
+    import torch
+
+    if not eng.live_first:
+        log(f"[{tag}] no request found its key live")
+        return
+    lines = []
+    with eager_steps(eng):
+        for m, rec in eng.live_first.items():
+            eng.load(m)
+            inst = eng.start_instance(m, **rec["kw"])
+            inst.prefill(rec["batch"], **rec["prefill_kw"])
+            eager = [inst.decode(tok) for tok in rec["tokens"]]
+            inst.finish()
+            eng.release(m)
+            match = logits_match(tag, f"{m} live-key request", rec["decode"], eager)
+            ties = 0
+            for i, (e, fed) in enumerate(zip(eager[:-1], rec["tokens"][1:])):
+                e = e.float()
+                want = e.argmax(-1).to(torch.int32)
+                for b in torch.nonzero(want != fed).flatten().tolist():
+                    gap = float(e[b, want[b]] - e[b, fed[b]])
+                    scale = max(1.0, float(e.abs().max()))
+                    assert gap <= TOL["bfloat16"] * scale, (tag, m, i, b, gap)
+                    ties += 1
+            lines.append(f"{m} {len(eager)} steps: {match}, {ties} greedy ties")
+    eng.live_first.clear()  # device copies the crash check must not count
+    log(f"[{tag}] each model's first live-key request against the eager step over its "
+        f"prompt and tokens: " + "; ".join(lines))
+
+
+def _load_line(i, rec, load, size, steps) -> str:
     m, rep, st = load
+    assert steps["model"] == m, (i, steps, m)
     return (f"req {i}: {m:12s} {'cold' if rec.cold else 'warm'} "
             f"reuse {rep.reuse_fraction:.4f}; bytes device-hit {st.bytes_device_hit} "
             f"h2d {st.bytes_h2d} (host {st.bytes_host_hit}, store {st.bytes_store}, "
@@ -1133,7 +1229,20 @@ def _load_line(i, rec, load, size) -> str:
             f"load {rec.load_s * 1e3:.3f} ms (h2d {st.transfer_seconds * 1e3:.3f} ms), "
             f"profile {rec.profile_s * 1e3:.3f} ms, prefill {rec.prefill_s * 1e3:.3f} ms, "
             f"decode {rec.decode_s / max(SERVERLESS_GEN, 1) * 1e3:.3f} ms/token, "
-            f"TTFT {rec.ttft * 1e3:.3f} ms")
+            f"TTFT {rec.ttft * 1e3:.3f} ms; decode steps: {steps['eager']} eager, "
+            f"{steps['captures']} captures, {steps['replays']} replays (key "
+            f"{'live' if steps['live'] else 'fresh'})")
+
+
+def check_live_keys(tag, steps):
+    """Every request whose model's params tree and slab were unchanged since
+    its previous request replays its decode from the first step: 0 eager
+    steps, 0 captures."""
+    live = [i for i, s in enumerate(steps) if s["live"]]
+    for i in live:
+        assert (steps[i]["eager"], steps[i]["captures"]) == (0, 0), (tag, i, steps[i])
+    log(f"[{tag}] requests on a live key (tree and slab unchanged since the model's previous "
+        f"request): {live} of {len(steps)}, each 0 eager steps and 0 captures")
 
 
 def check_loads(loads, sizes):
@@ -1187,10 +1296,12 @@ def serverless_phase(cfgs: dict, weights: dict, device="cuda", *, tag="serverles
     counts = ops.launch_counts()
     per_model = {m: dict(c) for m, c in eng.launches.items()}
     recs = sink.records
-    assert len(recs) == len(eng.loads) == len(trace)
+    steps = eng.requests[:]
+    assert len(recs) == len(eng.loads) == len(trace) == len(steps)
     for i, (rec, load) in enumerate(zip(recs, eng.loads)):
-        log(f"[{tag}] " + _load_line(i, rec, load, sizes[load[0]]))
+        log(f"[{tag}] " + _load_line(i, rec, load, sizes[load[0]], steps[i]))
     check_loads(eng.loads, sizes)
+    check_live_keys(tag, steps)
     kinds = {"warm": [i for i, r in enumerate(recs) if not r.cold],
              "full h2d cold": [i for i, (r, (m, _, st)) in enumerate(zip(recs, eng.loads))
                                if r.cold and st.bytes_h2d == sizes[m]],
@@ -1212,10 +1323,11 @@ def serverless_phase(cfgs: dict, weights: dict, device="cuda", *, tag="serverles
             f"cache_cap, round_up(S, {eng.block_tokens})): {json.dumps(rings)}")
     log(f"[{tag}] summary {json.dumps(sink.summary())}")
     _print_ttft_breakdown(recs)
-    decode_floors(tag, cfgs, recs)
+    decode_floors(tag, cfgs, recs, steps)
     gw._expire(math.inf)  # the keep-alives lapse: the hold loads each model in turn
     hold_first_tokens(eng, names, tag)
     steady_decode(eng, cfgs, tag, prompt)
+    hold_live_requests(eng, tag)
     if probe is not None:
         per_model.update(probe(eng))
     eng.crash()
@@ -1237,35 +1349,56 @@ def weight_floor(m, cfg) -> tuple[int, float]:
     return nbytes, nbytes / HBM_BYTES_PER_S * 1e3
 
 
-def decode_floors(tag, cfgs, recs):
-    """Each model's decode wall per token over its requests (each request's
-    first step eager and its second the capture) against its weight-read
-    floor."""
+def decode_floors(tag, cfgs, recs, steps):
+    """Each model's decode wall per token over its requests, split into
+    those on a live key (every step a replay) and those on a fresh one (the
+    key's eager first call and its capture among the steps), against its
+    weight-read floor."""
+    def span(walls):
+        return (f"{min(walls):.3f}-{max(walls):.3f} ms over {len(walls)}" if walls
+                else "none")
+
     for m, cfg in cfgs.items():
         nbytes, floor = weight_floor(m, cfg)
-        walls = [r.decode_s / SERVERLESS_GEN * 1e3 for r in recs if r.model_id == m]
-        log(f"[{tag}] {m}: decode {min(walls):.3f}-{max(walls):.3f} ms/token at B 1 against a "
-            f"weight-read floor of {floor:.3f} ms ({nbytes} B a step)")
+        walls = {kind: [r.decode_s / SERVERLESS_GEN * 1e3 for r, s in zip(recs, steps)
+                        if r.model_id == m and s["live"] == (kind == "live")]
+                 for kind in ("live", "fresh")}
+        every = walls["live"] + walls["fresh"]
+        log(f"[{tag}] {m}: decode {min(every):.3f}-{max(every):.3f} ms/token at B 1 (key live: "
+            f"{span(walls['live'])}; key fresh: {span(walls['fresh'])}) against a weight-read "
+            f"floor of {floor:.3f} ms ({nbytes} B a step)")
 
 
 STEADY_STEPS = 16
 
 
+def warm_steps(inst, tok):
+    """Two untimed decode steps of `inst` from `tok` (its key's eager first
+    call and its capture, or replays where the key is live); returns the
+    token, settled, and whether the first step was a replay."""
+    from repro_torch.serverless.gateway import greedy, settle
+
+    g = inst.engine.step_graphs
+    before = g.eager_steps if g is not None else 0
+    tok = greedy(inst.decode(tok))
+    live = g is not None and g.eager_steps == before
+    return settle(greedy(inst.decode(tok))), live
+
+
 def steady_decode(eng, cfgs, tag, prompt):
     """Each model's decode at B 1 once its step is captured (the paged step,
     or a state family's `Model.decode`): a fresh instance's prefill of the
-    phase's prompt, the key's eager first call and its capture, then
-    `STEADY_STEPS` replays timed sync-free, against the weight-read floor
-    (`weight_floor`), and 8 more under the profiler."""
+    phase's prompt, two untimed steps (the key's eager first call and its
+    capture, or replays where the key is still live, as the line says),
+    then `STEADY_STEPS` replays timed sync-free, against the weight-read
+    floor (`weight_floor`), and 8 more under the profiler."""
     from repro_torch.serverless.gateway import greedy, make_prefill_batch, settle, sync_free
 
     for m, cfg in cfgs.items():
         eng.load(m)
         inst = eng.start_instance(m)
         tok = settle(greedy(inst.prefill(make_prefill_batch(eng, m, prompt, 0))))
-        for _ in range(2):
-            tok = greedy(inst.decode(tok))
-        settle(tok)
+        tok, live = warm_steps(inst, tok)
         t0 = time.perf_counter()
         with sync_free(tok.device):
             for _ in range(STEADY_STEPS):
@@ -1273,7 +1406,8 @@ def steady_decode(eng, cfgs, tag, prompt):
         settle(tok)
         wall = (time.perf_counter() - t0) / STEADY_STEPS * 1e3
         nbytes, floor = weight_floor(m, cfg)
-        route = "eager" if eng.step_graphs is None else "graphed"
+        route = ("eager" if eng.step_graphs is None
+                 else f"graphed (key {'live' if live else 'fresh'} at its first step)")
         log(f"[{tag}] {m}: {route} decode {wall:.3f} ms/token at B 1 over {STEADY_STEPS} "
             f"steps after the capture, {wall / floor:.2f}x its weight-read floor of "
             f"{floor:.3f} ms")
@@ -1408,7 +1542,8 @@ def graph_stats(g) -> str:
     return (f"{g.eager_steps} eager first calls, {g.captures} captures "
             f"({g.capture_seconds / max(g.captures, 1) * 1e3:.3f} ms and "
             f"{g.pool_bytes_captured // max(g.captures, 1)} B of private pool each), "
-            f"{g.replays} replays, {g.dropped} dropped, {len(g)} live")
+            f"{g.replays} replays, {g.dropped} dropped ({g.evicted} past the limit or the "
+            f"budget), {len(g)} live holding {g.held_bytes()} B of a {g.budget} B budget")
 
 
 def graph_run(eng, cfg, batch, fed=None) -> dict:
@@ -1419,7 +1554,8 @@ def graph_run(eng, cfg, batch, fed=None) -> dict:
     `set_sync_debug_mode("error")` (`sync_free`).  `fed`: an earlier run's
     tokens, fed in its order (else greedy).  Returns the logits, tokens,
     launches, steady walls (replays only on a graphed engine), host time
-    of one step and device bytes allocated over the run."""
+    of one step, device bytes allocated over the run after `finish`, what
+    the live keys hold then, and the bytes after `close`."""
     import torch
 
     from repro_torch.kernels import ops
@@ -1506,6 +1642,10 @@ def graph_run(eng, cfg, batch, fed=None) -> dict:
     inst2.finish()
     out["allocated"] = allocated(dev) - base
     mark("finished")
+    if g is not None:  # what the keys that outlive the instances hold
+        out["live"], out["held"], out["budget"] = live_bytes(g), g.held_bytes(), g.budget
+    eng.close()
+    out["closed"] = allocated(dev) - base
     return out
 
 
@@ -1516,8 +1656,10 @@ def graphs_phase(cfg, weights, device="cuda") -> dict:
     tokens; logits equal step by step (bitwise, else within the bf16
     tolerance with greedy ties), launches equal, a capture inside the
     sync-error window, the graph dropped at the eviction and recaptured
-    after, device memory after `finish` equal to the eager engine's; capture
-    time, pool bytes, host time of a step; then `[profile]` of both."""
+    after, the recaptured and the fused keys live after `finish`, device
+    memory then the eager engine's plus those keys' tensors (within the
+    budget), and the eager engine's after `close`; capture time, pool
+    bytes, host time of a step; then `[profile]` of both."""
     import torch
 
     from repro_torch.configs import ShapeConfig
@@ -1579,14 +1721,21 @@ def graphs_phase(cfg, weights, device="cuda") -> dict:
         assert marks["after the window"] == (1, 1), marks  # captured under "error"
         assert marks["evicted"] == (1, 0), marks
         assert marks["recaptured"] == (2, 1), marks
-        assert marks["fused"] == (3, 2) and marks["finished"] == (3, 0), marks
+        # the recaptured B 4 key and the fused B 8 key outlive the instances
+        assert marks["fused"] == (3, 2) and marks["finished"] == (3, 2), marks
     if cuda:
-        assert graphed["allocated"] == eager["allocated"], (graphed["allocated"],
-                                                            eager["allocated"])
+        assert graphed["allocated"] == eager["allocated"] + graphed["live"], (
+            graphed["allocated"], eager["allocated"], graphed["live"])
+        assert 0 < graphed["live"] <= graphed["held"] <= graphed["budget"], graphed["held"]
+        assert graphed["closed"] == eager["closed"] == eager["allocated"], (
+            graphed["closed"], eager["closed"])
         before = torch.cuda.memory_reserved(dev)
         torch.cuda.empty_cache()
         log(f"[graphs] after finish the graphed engine holds {graphed['allocated']} B more "
-            f"than before its run, as the eager engine ({eager['allocated']} B); reserved "
+            f"than before its run: the eager engine's {eager['allocated']} B and its 2 live "
+            f"keys' {graphed['live']} B requested ({graphed['held']} B held: private pools "
+            f"reserved and static inputs, of a {graphed['budget']} B budget); after close "
+            f"{graphed['closed']} B, as the eager engine ({eager['closed']} B); reserved "
             f"{before} B, {torch.cuda.memory_reserved(dev)} B after empty_cache")
         for route in ("eager", "graphed"):
             profile_decode(runs[route]["engine"], cfg, batch)
@@ -1665,10 +1814,11 @@ def state_configs() -> dict:
 def eager_steps(eng):
     """`eng`'s decode steps eager inside the block, as ``cuda_graphs=False``
     runs them: a Python hook around a step (`router_choices`) sees only
-    eager calls.  No graph may be live on entry (the drop sites skip an
-    engine without graphs)."""
+    eager calls.  Every key is freed on entry, as a drop site frees it: the
+    drop sites skip an engine without graphs, so none may be live inside."""
     graphs = eng.step_graphs
-    assert graphs is None or not graphs.live(), [g.model_id for g in graphs.live()]
+    if graphs is not None:
+        graphs.drop()
     eng.step_graphs = None
     try:
         yield
@@ -1820,8 +1970,9 @@ def state_graph_run(cfg, weights, dev, graphed: bool, fed=None) -> dict:
     `STATE_GRAPH_STEPS` decode steps sync-free, the last ones timed, then
     `STATE_GRAPH_PROFILED` more under the profiler.  `fed`: an earlier
     run's tokens (else greedy).  Returns the logits, tokens, steady wall,
-    profile, requested device bytes after `finish`, an eager step's peak
-    growth and the graphs' costs."""
+    profile, requested device bytes after `finish` and after `close`, what
+    the live key holds after `finish`, an eager step's peak growth and the
+    graphs' costs."""
     import torch
 
     from repro_torch.serverless.gateway import greedy, make_prefill_batch, settle, sync_free
@@ -1873,7 +2024,10 @@ def state_graph_run(cfg, weights, dev, graphed: bool, fed=None) -> dict:
                          for x in g.live(m)]
     inst.finish()
     out["allocated"] = allocated(dev) - base
+    if g is not None:  # the key outlives the instance
+        out["live"], out["held"], out["budget"] = live_bytes(g), g.held_bytes(), g.budget
     eng.close()
+    out["closed"] = allocated(dev) - base
     return out
 
 
@@ -1881,7 +2035,9 @@ def state_graphs_check(cfgs: dict, weights: dict, device="cuda"):
     """Each non-paged model at full width on an eager engine and a graphed
     one over the same weights (`state_graph_run`), the graphed run fed the
     eager run's tokens: decode logits equal (bitwise, else within the bf16
-    tolerance), requested device bytes after `finish` equal; steady walls,
+    tolerance), requested device bytes after `finish` the eager engine's
+    plus the live key's tensors (within the budget), and equal after
+    `close`; steady walls,
     profiles and each graph's capture time, private pool and bytes a replay
     copies (in, and out again) logged."""
     import torch
@@ -1896,7 +2052,9 @@ def state_graphs_check(cfgs: dict, weights: dict, device="cuda"):
             f"ms/token eager, {graphed['wall_ms']:.3f} graphed ("
             f"{graphed['wall_ms'] / eager['wall_ms']:.3f} of eager) over the last "
             f"{STATE_GRAPH_STEPS - STATE_GRAPH_WARM} steps; requested device bytes after "
-            f"finish {eager['allocated']} eager, {graphed['allocated']} graphed")
+            f"finish {eager['allocated']} eager, {graphed['allocated']} graphed (its live "
+            f"key's {graphed.get('live', 0)} B; {graphed.get('held', 0)} B held), after close "
+            f"{eager['closed']} eager, {graphed['closed']} graphed")
         if dev.type != "cuda":
             continue
         for ms, pool, copied in graphed["graphs"]:
@@ -1915,8 +2073,77 @@ def state_graphs_check(cfgs: dict, weights: dict, device="cuda"):
                 f"{e['kernels']:.0f} / {gr['kernels']:.0f}, device copies {e['copy_ms']:.3f} / "
                 f"{gr['copy_ms']:.3f} ms")
         assert len(graphed["graphs"]) == 1, graphed["graphs"]
-        assert graphed["allocated"] == eager["allocated"], (graphed["allocated"],
-                                                            eager["allocated"])
+        assert graphed["allocated"] == eager["allocated"] + graphed["live"], (
+            graphed["allocated"], eager["allocated"], graphed["live"])
+        assert 0 < graphed["live"] <= graphed["held"] <= graphed["budget"], graphed["held"]
+        assert graphed["closed"] == eager["closed"] == eager["allocated"], (
+            graphed["closed"], eager["closed"])
+
+
+# the gateway engine's replays against its prefetch worker: mamba2-2.7b's B 1
+# replays with the worker idle, then while it promotes the smallest leaves the
+# other models hold in no device buffer (at least PREFETCH_PROBE_BYTES,
+# spilled to the persistent store first) back into the host tier
+PREFETCH_PROBE = "mamba2-2.7b"
+PREFETCH_PROBE_BYTES = 1 << 30
+
+
+def prefetch_probe(eng, steps: int = STEADY_STEPS):
+    """Where the gateway engine's state-family replays idle: `steps` timed
+    B 1 replays of `PREFETCH_PROBE` and 8 profiled (CUDA), first with the
+    prefetch worker idle, then with it promoting other models' spilled
+    leaves (store read, checksum, page-locked copy on the worker thread);
+    logs each wall, the device busy time and idle share, and the bytes the
+    worker promoted meanwhile.  A finding only: no prefetch code changes."""
+    from repro_torch.serverless.gateway import greedy, make_prefill_batch, settle
+
+    m = PREFETCH_PROBE
+    eng.load(m)
+    inst = eng.start_instance(m)
+    tok = settle(greedy(inst.prefill(make_prefill_batch(eng, m, STATE_PROMPT, 0))))
+    tok, live = warm_steps(inst, tok)
+    lines = []
+    for worker in ("idle", "busy"):
+        jobs, promoted = {}, eng.prefetcher.bytes_promoted
+        if worker == "busy":
+            spilled = 0
+            with eng._store_lock:  # a device hit is never promoted: spill misses only
+                misses = sorted(((r.nbytes, r.fingerprint, mid) for mid, reg in eng.models.items()
+                                 if mid != m for r in reg.records
+                                 if r.fingerprint not in eng._tensors))
+                for nbytes, fp, mid in misses:
+                    if spilled >= PREFETCH_PROBE_BYTES:
+                        break
+                    if eng.host_store.evict(fp):
+                        spilled += nbytes
+                        jobs[mid] = None
+            jobs = {mid: eng.prefetch(mid) for mid in jobs}
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            tok = greedy(inst.decode(tok))
+        settle(tok)
+        wall = (time.perf_counter() - t0) / steps * 1e3
+        during = eng.prefetcher.bytes_promoted - promoted
+        line = (f"worker {worker}: {wall:.3f} ms/token over {steps} replays, "
+                f"{during} B promoted meanwhile")
+        if eng.device.type == "cuda":
+            prof = profile_decode_steps(inst, tok, 8, "state-families",
+                                        f"{m} B=1 on the gateway engine, prefetch worker {worker}")
+            if prof:
+                line += (f", device busy {prof['busy_ms']:.3f} ms: idle share "
+                         f"{1 - prof['busy_ms'] / wall:.3f} of the unprofiled wall")
+        if jobs:
+            line += (f", {sum(not j.done.is_set() for j in jobs.values())} of {len(jobs)} jobs "
+                     f"({', '.join(jobs)}) still promoting after the profile ({spilled} B "
+                     f"spilled)")
+            for mid in jobs:
+                eng.cancel_prefetch(mid)
+            assert eng.prefetcher.bytes_promoted > promoted, "the worker promoted nothing"
+        lines.append(line)
+    inst.finish()
+    eng.release(m)
+    log(f"[state-families] prefetch probe, {m} B 1 replays on the gateway engine (key "
+        f"{'live' if live else 'fresh'} at its first step): " + "; ".join(lines))
 
 
 def state_families_phase(cfgs: dict, weights: dict, device="cuda") -> dict:
@@ -1936,6 +2163,7 @@ def state_families_phase(cfgs: dict, weights: dict, device="cuda") -> dict:
         counts = {f"{m} long": long_prompt_probe(eng, m, S) for m, S in STATE_LONG.items()}
         if eng.device.type == "cuda":
             profile_states(eng, list(cfgs))
+        prefetch_probe(eng)
         return counts
 
     counts = serverless_phase(cfgs, weights, device, tag="state-families",
@@ -2198,10 +2426,20 @@ def fleet_phase(cfgs: dict, weights: dict, device="cuda") -> dict:
     t0 = time.perf_counter()
     sink = fg.run_trace(trace, faults=events)
     replay_s = time.perf_counter() - t0
+    served = {e.engine_id: iter(e.requests) for e in engines}  # each engine's instances
+    steps = []
     for d, rec in zip(fg.decisions, sink.records):
+        st = next(served[d[2]])
+        assert st["model"] == d[1], (d, st)
+        steps.append(st)
         log(f"[fleet] t {d[0]:.3f} {d[1]:12s} -> {d[2]} {'cold' if d[3] else 'warm'} queue "
             f"{d[4]:.6f} s; load {rec.load_s * 1e3:.3f} ms, prefill {rec.prefill_s * 1e3:.3f} "
-            f"ms, store bytes {rec.bytes_from_store}, prefetched {rec.prefetched}")
+            f"ms, decode {rec.decode_s / SERVERLESS_GEN * 1e3:.3f} ms/token, store bytes "
+            f"{rec.bytes_from_store}, prefetched {rec.prefetched}; decode steps: {st['eager']} "
+            f"eager, {st['captures']} captures, {st['replays']} replays (key "
+            f"{'live' if st['live'] else 'fresh'})")
+    assert all(next(it, None) is None for it in served.values())
+    check_live_keys("fleet", steps)
     for eng in engines:
         check_loads(eng.loads, sizes)
         log(f"[fleet] {eng.engine_id} fault ledger {json.dumps(eng.fault_summary())}")
@@ -2225,7 +2463,7 @@ def fleet_phase(cfgs: dict, weights: dict, device="cuda") -> dict:
     # the current request's service as its window, so the prefetch worker
     # promotes spilled tensors before the hinted load joins
     eng = next(e for e in engines if e.engine_id == crashed)
-    n0 = len(eng.loads)
+    n0, k0 = len(eng.loads), len(eng.requests)
     big = max(names, key=sizes.get)
     small = min(names, key=sizes.get)
     t_end = max(trace[-1].time, max(d[0] for d in fg.decisions)) + 100.0
@@ -2234,9 +2472,13 @@ def fleet_phase(cfgs: dict, weights: dict, device="cuda") -> dict:
     gw = Gateway(eng, keep_alive="zero", prompt_len=SERVERLESS_PROMPT,
                  gen_tokens=SERVERLESS_GEN)
     gw_sink = gw.run_trace(replay)
+    steps = eng.requests[k0:]
+    assert len(steps) == len(gw_sink.records) == len(eng.loads) - n0
     for i, (rec, load) in enumerate(zip(gw_sink.records, eng.loads[n0:])):
-        log(f"[fleet] {crashed} (recovered) " + _load_line(i, rec, load, sizes[load[0]]))
+        log(f"[fleet] {crashed} (recovered) "
+            + _load_line(i, rec, load, sizes[load[0]], steps[i]))
     check_loads(eng.loads, sizes)
+    check_live_keys("fleet", steps)
     loads = [ld for e in engines for ld in e.loads]
     store = [ld for ld in loads if ld[2].bytes_store > 0]
     prefetched = [ld for ld in loads if ld[2].bytes_prefetched > 0]

@@ -22,11 +22,12 @@ Fast paths (DESIGN.md §10), as in the reference:
   * **Compiled decode steps** — on CUDA the paged decode step and the
     state families' non-paged step (`Model.decode`) are CUDA graphs per
     specialisation, captured on a key's second call and replayed after,
-    shared by a model's instances (`step_graph.py`; the reference's
-    ``jax.jit`` of the paged step and its compiled layer scan).  Graphs
-    hold raw pointers, so the engine drops a model's graphs wherever its
-    params tree is re-assembled or deleted, where its last instance
-    finishes, where the slab grows, and at `close` and `crash`.
+    shared by a model's instances and kept across its requests while its
+    params tree stays assembled, within a stated device budget
+    (`step_graph.py`; the reference's ``jax.jit`` of the paged step and its
+    compiled layer scan).  Graphs hold raw pointers, so the engine drops a
+    model's graphs wherever its params tree is re-assembled or deleted,
+    where the slab grows, and at `close` and `crash`.
 
 Where the reference donates buffers to a jitted scatter, the port updates
 the shared slab in place.  `SharedKVSlab.grow` reallocates, so every holder
@@ -739,7 +740,8 @@ class Engine:
 
     On CUDA both decode steps (the paged `_paged_decode_step` and the
     state families' `Model.decode`) run as CUDA graphs shared by a model's
-    instances (`step_graph.StepGraphs`, the reference's ``jax.jit`` of
+    instances and kept while its params tree stays assembled
+    (`step_graph.StepGraphs`, the reference's ``jax.jit`` of
     `_paged_decode_step` and its compiled layer scan); ``cuda_graphs=False``
     keeps them eager.  A CPU engine never captures."""
 
@@ -793,6 +795,10 @@ class Engine:
                                      tracer=self.tracer, track=self._track)
         self._tensors: dict[str, torch.Tensor] = {}  # fingerprint -> live buffer
         self._params_cache: dict[str, Any] = {}  # model_id -> assembled tree
+        # model_id -> the generation number of its assembled tree: what a
+        # compiled step's key holds of the tree (never reused, unlike id())
+        self._tree_of: dict[str, int] = {}
+        self._tree_numbers = itertools.count()
         self._slabs: dict[tuple, SharedKVSlab] = {}  # KV geometry -> slab
         self._fused: dict[tuple, tuple] = {}  # group -> cached fused state
         self._instances_of: dict[str, int] = {}  # model_id -> live instances
@@ -1105,6 +1111,7 @@ class Engine:
             self._drop_graphs(model_id=reg.model_id)  # they read the old tree
             self._params_cache[reg.model_id] = tree_unflatten(
                 reg.treedef, [self._tensors[r.fingerprint] for r in reg.records])
+            self._tree_of[reg.model_id] = next(self._tree_numbers)
             stats.profile_seconds = _time.perf_counter() - tp
             if self.tracer.enabled:
                 self.tracer.emit("profile", tp, tp + stats.profile_seconds,
@@ -1327,9 +1334,8 @@ class Engine:
             self._instances_of[model_id] = n
             return
         self._instances_of.pop(model_id, None)
-        # a graph's private pool is device memory outside the pool's
-        # capacity: it lives no longer than the model's instances
-        self._drop_graphs(model_id=model_id)
+        # the model's compiled steps stay: the next request over the same
+        # tree replays them, as the reference's jit cache outlives instances
         self.store.release(model_id)
         self._unpin_model(model_id)
         self.sync_evictions(keep_active=True)
@@ -1594,8 +1600,8 @@ class Engine:
         return self.step_graphs.step(
             model_id, lambda tok, tab, lens: _paged_decode_step(params, cfg, tok, tab, lens,
                                                                 k_pages, v_pages, attn=attn),
-            (cfg, attn), (token, tables, lengths), params=params, baked=(k_pages, v_pages),
-            slab=slab)
+            (cfg, attn), (token, tables, lengths), tree=self._tree_of[model_id],
+            baked=(k_pages, v_pages), slab=slab)
 
     def _state_step(self, model_id: str, params, cfg: ModelConfig, token, pos, cache):
         """`Model.decode` of a state family (rings, recurrence states,
@@ -1615,7 +1621,7 @@ class Engine:
 
         logits, *leaves = self.step_graphs.step(
             model_id, step, (cfg,), (token, pos, *(t for _, t in flatten_params(cache))),
-            params=params)
+            tree=self._tree_of[model_id])
         return logits, tree_unflatten(structure, leaves)
 
 

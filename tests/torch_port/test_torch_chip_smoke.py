@@ -125,6 +125,34 @@ def test_fleet_phase_rehearses_on_cpu(monkeypatch):
     assert summary["engine_crashes"] == 1 and summary["dropped_requests"] == 0
 
 
+def test_gateway_phases_rehearse_graphed_on_cpu(monkeypatch, capsys):
+    """[serverless] and [fleet] with the engines' decode steps captured
+    through the CPU double of a CUDA graph and kept across requests: every
+    request whose model's tree and slab are unchanged since its previous
+    request replays from its first step (0 eager steps, 0 captures), each
+    model's first such request equals the eager step's rerun, and the
+    counts and holds are as eager."""
+    import re
+
+    cs = load_chip_smoke()
+    monkeypatch.setattr(cs, "SERVERLESS_PROMPT", 40)
+    monkeypatch.setattr(cs, "SERVERLESS_GEN", 4)
+    monkeypatch.setattr(cs, "FLEET_HOST_CACHE", 64 << 10)
+    count_plain_calls(monkeypatch)
+    made = capture_through_double(monkeypatch)
+    cfgs, weights = tiny_models(cs)
+    cs.serverless_phase(cfgs, weights, "cpu")
+    out = capsys.readouterr().out
+    live = re.search(r"\[serverless\] requests on a live key .*: \[(.*)\] of 10", out)
+    assert live and live.group(1), out  # the roomy trace has warm and full-hit requests
+    assert "each model's first live-key request against the eager step" in out
+    assert out.count("(key live)") == len(live.group(1).split(","))
+    summary = cs.fleet_phase(cfgs, weights, "cpu")
+    assert summary["engine_crashes"] == 1 and summary["dropped_requests"] == 0
+    assert "[fleet] requests on a live key" in capsys.readouterr().out
+    assert made and all(g.replays > 0 and not g.live() for g in made)
+
+
 TINY_MOE = dict(num_layers=2, d_model=128, moe_d_ff=64, vocab_size=512, num_heads=8,
                 num_kv_heads=1, head_dim=32, num_experts=16, experts_per_token=4)
 TINY_VLM = dict(num_layers=3, d_model=96, d_ff=192, vocab_size=512, num_heads=7,

@@ -60,8 +60,9 @@ from repro.serving.engine import Engine as RefEngine  # noqa: E402
 from repro_torch.configs import get_config as port_config  # noqa: E402
 from repro_torch.models.convert import params_from_numpy  # noqa: E402
 from repro_torch.serving.engine import Engine as PortEngine  # noqa: E402
+from repro_torch.serving.step_graph import StepGraphs, shape_key  # noqa: E402
 
-from torch_port_helpers import ref_named_numpy, to_f32  # noqa: E402
+from torch_port_helpers import RecordingCapture, ref_named_numpy, to_f32  # noqa: E402
 
 
 def plane(core, sl, lc, faults, sched, tensors):
@@ -483,8 +484,12 @@ def _trace(p, n, seed, mean):
                               mean_interarrival=mean)
 
 
-def _gateway_run(ref_cls, cap, keep_alive, seed, **kw):
+def _gateway_run(ref_cls, cap, keep_alive, seed, graphs=None, **kw):
+    """The same trace through both gateways; `graphs`: the port engine's
+    `StepGraphs` (else its CPU default, none)."""
     (ref,), (port,) = engine_pair(cap, ref_cls=ref_cls, **kw)
+    if graphs is not None:
+        port.step_graphs = graphs
     out = []
     for gw_cls, eng, p in ((REF_GATEWAY, ref, REF), (PORT_GATEWAY, port, PORT)):
         gw = gw_cls(eng, keep_alive=keep_alive, prompt_len=PROMPT, gen_tokens=GEN)
@@ -526,6 +531,44 @@ def test_gateway_matches_reference_when_the_pool_evicts():
     for _, rep, stats, _ in port["loads"]:
         assert stats["bytes_h2d"] == rep[2]  # moved == the report's transfer
         assert stats["bytes_device_hit"] + stats["bytes_h2d"] == rep[0]
+
+
+class KeyedGraphs(StepGraphs):
+    """The port's compiled steps through the CPU double of a CUDA graph,
+    recording each call's (shape, params tree) key."""
+
+    def __init__(self):
+        super().__init__(RecordingCapture())
+        self.keys = set()
+
+    def step(self, model_id, fn, static, inputs, *, tree, baked=(), slab=None):
+        self.keys.add((shape_key(static, (*inputs, *baked)), tree))
+        return super().step(model_id, fn, static, inputs, tree=tree, baked=baked, slab=slab)
+
+
+@pytest.mark.parametrize("pool", ["roomy", "one model"])
+def test_graphed_gateway_matches_reference(pool):
+    """The port gateway with its decode steps captured and kept across
+    requests: cold/warm starts, lifecycle, every load's ledger, greedy
+    tokens and the host tier equal the reference gateway's over the same
+    trace; each distinct (shape, tree) key is captured once and every
+    later request over it replays (a re-assembled tree is a new key); and
+    the port's specialisations equal the reference's compiled cache of
+    `_paged_decode_step`, which outlives its instances as the keys do."""
+    from repro.serving import engine as ref_engine
+
+    ref_cls, cap, keep_alive, seed = ((RecRef, 256 << 20, "fixed:45", 3) if pool == "roomy"
+                                      else (SyncRef, _pool_for_one_model(), "zero", 6))
+    ref_engine._paged_decode_step.clear_cache()
+    g = KeyedGraphs()
+    ref, port = _gateway_run(ref_cls, cap, keep_alive, seed, graphs=g)
+    assert port == ref
+    assert g.captures == g.eager_steps == len(g.keys)
+    assert g.replays == 7 * GEN - g.eager_steps  # a key's first call alone is eager
+    assert ref_engine._paged_decode_step._cache_size() == len(g.shapes) == len(MODELS)
+    # the roomy pool keeps both trees (7 requests, 2 keys); in the one-model
+    # pool each switch re-assembles the model's tree (l l d l d d l: 5 keys)
+    assert len(g.keys) == {"roomy": 2, "one model": 5}[pool]
 
 
 def test_reference_gateway_counts_evicted_buffers_as_device_hits():

@@ -283,6 +283,8 @@ def captured(eng, inst, tok, steps=3):
 
 @pytest.mark.parametrize("name", ["mamba2-2.7b", "recurrentgemma-9b"])
 def test_last_finish_close_and_crash_drop_graphs(name):
+    """The last instance's finish keeps the model's key (its tree stays
+    assembled); `close` and `crash` drop every key."""
     eng = engine(name, True)
     g = eng.step_graphs
     eng.load("m")
@@ -291,22 +293,65 @@ def test_last_finish_close_and_crash_drop_graphs(name):
     captured(eng, a, ta)
     a.finish()  # b still decodes: the graph stays
     assert len(g.live("m")) == 1
-    b.finish()  # the last instance: its pool leaves the card
-    assert not g.live("m") and g.dropped == 1
+    b.finish()  # the last instance: the key outlives it
+    assert len(g.live("m")) == 1 and g.dropped == 0
     eng.load("m")
     c, tc = started(eng, seed=3)
     captured(eng, c, tc)
     eng.close()
-    assert not len(g) and g.dropped == 2
+    assert not len(g) and g.dropped == 1 and g.held_bytes() == 0
     d, td = started(eng, seed=4)
     captured(eng, d, td)
     eng.crash()
-    assert not len(g) and g.dropped == 3
+    assert not len(g) and g.dropped == 2 and g.held_bytes() == 0
+
+
+@pytest.mark.parametrize("name", FAMILIES)
+def test_last_finish_keeps_graphs_close_and_crash_drop_them(name):
+    """After the last `finish` the key stays live, and the next request's
+    instance replays it from its first step (no eager step, no capture);
+    its logits and caches equal an eager engine's.  The key holds the
+    cache's static copy beside its pool; `close` and `crash` free it."""
+    outs = {}
+    for graphed in (False, True):
+        eng = engine(name, graphed)
+        eng.load("m")
+        steps = []
+        for seed in (1, 2):
+            a, ta = started(eng, seed=seed)
+            if graphed:
+                g = eng.step_graphs
+                counts = (g.eager_steps, g.captures, g.replays)
+            for _ in range(4):
+                steps.append((a.decode(ta), a._cache))
+                ta = greedy(steps[-1][0])
+            a.finish()
+            if graphed:
+                made = (g.eager_steps - counts[0], g.captures - counts[1],
+                        g.replays - counts[2])
+                assert made == ((1, 1, 3) if seed == 1 else (0, 0, 4)), (seed, made)
+                assert len(g.live("m")) == 1 and g.dropped == 0
+        outs[graphed] = steps
+        if graphed:
+            (key,) = g.live("m")
+            assert g.held_bytes() == sum(t.nbytes for t in key.inputs)
+            assert g.held_bytes() > sum(t.nbytes for t in leaves(a._cache)) > 0
+            eng.close()
+            assert not len(g) and g.held_bytes() == 0
+            eng.load("m")
+            c, tc = started(eng, seed=3)
+            captured(eng, c, tc)
+            c.finish()
+            eng.crash()
+            assert not len(g) and g.held_bytes() == 0 and g.dropped == 2
+    for (el, ec), (gl, gc) in zip(outs[False], outs[True]):
+        assert torch.equal(el, gl) and same(ec, gc)
 
 
 def test_paged_and_state_steps_share_one_graph_cache():
     """One engine's `StepGraphs` keys both steps: a paged model's and a
-    state model's graphs live side by side and drop by model."""
+    state model's graphs live side by side, outlive their instances and
+    drop by model."""
     eng = Engine(256 << 20, device="cpu")
     eng.register("dense", dataclasses.replace(port_config("llama3.2-1b").smoke(),
                                               num_layers=2, vocab_size=512, dtype="float32"))
@@ -318,9 +363,12 @@ def test_paged_and_state_steps_share_one_graph_cache():
         insts[mid] = started(eng, mid, seed=1)
         captured(eng, *insts[mid])
     assert len(g) == 2 and {x.slab is None for x in g.live()} == {True, False}
-    insts["ssm"][0].finish()
+    for inst, _ in insts.values():
+        inst.finish()
+    assert len(g) == 2
+    eng.drop_device_copies("ssm")
     assert [x.model_id for x in g.live()] == ["dense"]
-    insts["dense"][0].finish()
+    eng.drop_device_copies("dense")
     assert not len(g)
 
 

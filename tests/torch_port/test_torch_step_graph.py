@@ -266,6 +266,8 @@ def test_graph_dropped_where_params_or_slab_move(site):
 
 
 def test_last_finish_close_and_crash_drop_graphs():
+    """The last instance's finish keeps the model's key (its tree stays
+    assembled); `close` and `crash` drop every key."""
     eng = engine(True)
     g = eng.step_graphs
     eng.load("m")
@@ -274,17 +276,191 @@ def test_last_finish_close_and_crash_drop_graphs():
     captured(eng, a, ta)
     a.finish()  # b still decodes: the graph stays
     assert len(g.live("m")) == 1
-    b.finish()  # the last instance: its pool leaves the card
-    assert not g.live("m") and g.dropped == 1
+    b.finish()  # the last instance: the key outlives it
+    assert len(g.live("m")) == 1 and g.dropped == 0
     eng.load("m")
     c, tc = started(eng, seed=3)
     captured(eng, c, tc)
     eng.close()
-    assert not len(g) and g.dropped == 2
+    assert not len(g) and g.dropped == 1 and g.held_bytes() == 0
     d, td = started(eng, seed=4)
     captured(eng, d, td)
     eng.crash()
-    assert not len(g) and g.dropped == 3
+    assert not len(g) and g.dropped == 2 and g.held_bytes() == 0
+
+
+def test_last_finish_keeps_graphs_close_and_crash_drop_them():
+    """After the last `finish` the key stays live, and a new instance's
+    first step replays it: no eager step, no capture, as the reference's
+    next request runs its compiled step; its logits equal an eager
+    engine's.  `close` and `crash` still free every key."""
+    outs = {}
+    for graphed in (False, True):
+        eng = engine(graphed)
+        eng.load("m")
+        logits = []
+        for seed in (1, 2):  # two requests, one after the other
+            a, ta = started(eng, seed=seed)
+            if graphed:
+                g = eng.step_graphs
+                counts = (g.eager_steps, g.captures, g.replays)
+            for _ in range(4):
+                logits.append(a.decode(ta))
+                ta = greedy(logits[-1])
+            a.finish()
+            if graphed:
+                made = (g.eager_steps - counts[0], g.captures - counts[1],
+                        g.replays - counts[2])
+                # the first request: eager, capture, 3 replays (a capture
+                # replays too); the second replays from its first step
+                assert made == ((1, 1, 3) if seed == 1 else (0, 0, 4)), (seed, made)
+                assert len(g.live("m")) == 1 and g.dropped == 0
+        outs[graphed] = logits
+        if graphed:
+            held = g.held_bytes()
+            assert held == sum(t.nbytes for x in g.live() for t in x.inputs) > 0
+            eng.close()
+            assert not len(g) and g.held_bytes() == 0 and g.dropped == 1
+            eng.load("m")
+            c, tc = started(eng, seed=3)
+            captured(eng, c, tc)
+            c.finish()
+            assert len(g) == 1
+            eng.crash()
+            assert not len(g) and g.held_bytes() == 0 and g.dropped == 2
+    for e, gr in zip(outs[False], outs[True]):
+        assert torch.equal(e, gr)
+
+
+POOL = 1 << 20  # what each capture's private pool reports
+
+
+def _key_bytes(B, blocks=64) -> int:
+    # a paged key's static inputs: the token (B,), tables (B, blocks) and
+    # lengths (B,), int32
+    return POOL + 4 * (B + B * blocks + B)
+
+
+# bound -> (StepGraphs' keyword, the bound: room for two keys of B <= 3)
+BOUNDS = {"budget": ("budget", _key_bytes(2) + _key_bytes(3)),
+          "limit": ("limit", 2)}
+
+
+@pytest.mark.parametrize("bound", sorted(BOUNDS))
+def test_budget_frees_least_recently_used_key(bound):
+    """Three keys (B 1, 2, 3) under a bound that holds two: a call moves its
+    key to the end, and the next key frees the least recently called one,
+    by held bytes (`budget`) or by keys (`limit`); the logits equal an
+    eager engine's over the same calls."""
+    word, value = BOUNDS[bound]
+    outs = {}
+    for graphed in (False, True):
+        eng = engine(graphed, models=(("m", 2),))
+        if graphed:
+            eng.step_graphs = g = StepGraphs(RecordingCapture(POOL), **{word: value})
+        eng.load("m")
+        insts = {B: started(eng, seed=B, B=B) for B in (1, 2, 3)}
+        logits = []
+
+        def step(B):
+            inst, tok = insts[B]
+            logits.append(inst.decode(tok))
+            insts[B] = (inst, greedy(logits[-1]))
+
+        def live():
+            return sorted(int(x.inputs[0].shape[0]) for x in g.live())
+
+        for B in (1, 1, 2, 2):  # keys B 1 and B 2 captured
+            step(B)
+        if graphed:
+            assert live() == [1, 2] and g.held_bytes() == _key_bytes(1) + _key_bytes(2)
+        step(1)  # B 1 is now the most recently called
+        for B in (3, 3):  # B 3's first call and its capture free B 2
+            step(B)
+        if graphed:
+            assert live() == [1, 3] and (g.evicted, g.dropped) == (1, 1)
+            assert g.held_bytes() <= BOUNDS["budget"][1]
+        for B in (2, 2):  # B 2 comes back: eager, captured, and B 1 goes
+            step(B)
+        if graphed:
+            assert live() == [2, 3] and g.evicted == 2
+            assert (g.eager_steps, g.captures) == (4, 4)
+        outs[graphed] = logits
+        for inst, _ in insts.values():
+            inst.finish()
+    for e, gr in zip(outs[False], outs[True]):
+        assert torch.equal(e, gr)
+
+
+def test_a_key_over_the_budget_alone_captures_and_replays():
+    """A key that alone holds more than the budget still captures and
+    replays; the next key's capture frees it."""
+    eng = engine(False)
+    eng.step_graphs = g = StepGraphs(RecordingCapture(POOL), budget=POOL // 2)
+    eng.load("m")
+    a, ta = started(eng, seed=1, B=2)
+    captured(eng, a, ta, steps=4)
+    assert g.replays == 3 and len(g) == 1 and g.held_bytes() > g.budget
+    b, tb = started(eng, seed=2, B=1)
+    captured(eng, b, tb)
+    assert [int(x.inputs[0].shape[0]) for x in g.live()] == [1] and g.evicted == 1
+    a.finish(), b.finish()
+
+
+def test_release_keeps_graphs_until_the_pool_evicts():
+    """Keep-alive's `retain` and `release` drop nothing: a released model
+    keeps its key, and its next instance replays from its first step, until
+    another model's load evicts one of its tensors."""
+    eng = engine(True, cap=3_000_000, models=(("m", 2), ("b", 2)))
+    g = eng.step_graphs
+    eng.load("m")
+    a, ta = started(eng, seed=1)
+    captured(eng, a, ta)
+    a.finish()
+    eng.retain("m")  # warm
+    eng.release("m")  # scaled to zero: evictable, still resident
+    assert len(g.live("m")) == 1 and "m" in eng._params_cache
+    eng.load("m")  # a full device hit: the tree stays
+    b, tb = started(eng, seed=2)
+    counts = (g.eager_steps, g.captures)
+    captured(eng, b, tb)
+    assert (g.eager_steps, g.captures) == counts
+    b.finish()
+    eng.load("b")  # the pool holds one model: m's tensors go
+    assert not g.live("m") and "m" not in eng._params_cache and g.dropped == 1
+
+
+def test_a_new_tree_or_slab_is_a_new_key():
+    """A key holds the params tree by the engine's generation number and the
+    slab's pages themselves, so neither can alias a later one: with the
+    engine's drops disabled, a re-assembled tree and a grown slab each
+    still get a fresh key (an eager first call, then a capture) instead of
+    a replay of a graph over freed memory."""
+    eng = engine(True)
+    g = eng.step_graphs
+    eng.load("m")
+    a, ta = started(eng, seed=1)
+    captured(eng, a, ta)
+    a.finish()
+    first = eng._tree_of["m"]
+    eng.drop_device_copies("m")  # the tree is freed
+    assert not g.live("m") and "m" not in eng._params_cache
+    eng._drop_graphs = lambda **which: None  # from here on nothing drops
+    eng.load("m")  # a new tree
+    assert eng._tree_of["m"] != first
+    b, tb = started(eng, seed=2)
+    tb = captured(eng, b, tb)
+    assert (g.eager_steps, g.captures) == (2, 2)
+    (key,) = g.live("m")
+    assert [t.data_ptr() for t in key.baked] == [b.slab.k_pages.data_ptr(),
+                                                 b.slab.v_pages.data_ptr()]
+    old = key.baked
+    eng.start_instance("m", num_pages=128).finish()  # the slab grows, undropped
+    assert b.slab.k_pages.data_ptr() not in {t.data_ptr() for t in old}
+    captured(eng, b, tb)
+    assert (g.eager_steps, g.captures) == (3, 3) and len(g.live("m")) == 2
+    assert all(t.untyped_storage().nbytes() for t in old)  # still held by the old key
+    b.finish()
 
 
 def test_variant_load_keeps_the_base_graph_and_keys_its_own_tree():

@@ -16,6 +16,10 @@ second the capture), the model's device copies dropped and reloaded
 between steps 8 and 9, then a second instance and 8 fused `decode_many`
 steps at B 4.  Logits must be equal bit for bit, or within the bf16
 tolerance of scale (2e-2) with any changed greedy token a tie within it.
+After the last `finish` the keys stay live: the next request's instance
+replays from its first step, bitwise equal to eager; device memory is the
+eager engine's plus the live keys' tensors, and the eager engine's again
+after `close`.
 """
 import dataclasses
 import gc
@@ -33,8 +37,20 @@ pytestmark = pytest.mark.cuda
 
 ARCHS = ("llama3.2-1b", "qwen3-moe-30b-a3b", "qwen2-vl-7b")
 B, S = 2, 40
+NEXT = 4  # decode steps of the next request's instance
 STEPS, EVICT_AT, FUSED = 16, 8, 8
 TOL = 2e-2  # bf16, relative to the logits' scale (tests/test_kernels.py)
+
+
+# PyTorch's CUDA generator holds a graph-safe seed and offset (two int64
+# tensors) while any graph is registered with it
+RNG_GRAPH_STATE_BYTES = 16
+
+
+def live_bytes(g) -> int:
+    """Device bytes the live keys of `g` account for: their static tensors
+    (`StepGraphs.static_bytes`) and the generator's graph state."""
+    return g.static_bytes() + (RNG_GRAPH_STATE_BYTES if g.live() else 0)
 
 
 def allocated() -> int:
@@ -50,10 +66,10 @@ def allocated() -> int:
 def run(eng: Engine, cfg, batch, fed=None) -> dict:
     m, g = cfg.name, eng.step_graphs
     feed = iter(fed) if fed is not None else None
-    out = {"logits": [], "tokens": [], "marks": {}}
+    out = {"logits": [], "tokens": [], "marks": {}, "next": []}
 
-    def take(logits):
-        out["logits"].append(logits)
+    def take(logits, into="logits"):
+        out[into].append(logits)
         # a fed token is copied, so both runs allocate what they hold
         tok = next(feed).clone() if feed is not None else logits.argmax(-1).to(torch.int32)
         out["tokens"].append(tok)
@@ -90,6 +106,21 @@ def run(eng: Engine, cfg, batch, fed=None) -> dict:
     a.finish(), b.finish()
     mark("finished")
     out["allocated"] = allocated() - base
+    if g is not None:
+        out["live"] = live_bytes(g)
+        out["held"] = g.held_bytes()
+        counts = (g.eager_steps, g.captures, g.replays)
+    # the next request: a fresh instance over the same tree
+    c = eng.start_instance(m, num_pages=64)
+    tc = take(c.prefill(batch), "next")
+    for _ in range(NEXT):
+        tc = take(c.decode(tc), "next")
+    c.finish()
+    if g is not None:
+        out["next_counts"] = (g.eager_steps - counts[0], g.captures - counts[1],
+                              g.replays - counts[2])
+    eng.close()
+    out["closed"] = allocated() - base
     return out
 
 
@@ -147,11 +178,31 @@ def test_eviction_drops_and_reload_recaptures(runs):
     marks = out["graphed"]["marks"]
     assert marks["evicted"] == (1, 0)
     assert marks["reloaded"] == (2, 1)
-    assert marks["finished"] == (3, 0)  # the fused key's, and none left live
+    assert marks["finished"] == (3, 2)  # the fused key's; it and the B 2 key stay live
 
 
 def test_memory_back_to_eager_after_finish(runs):
+    """Memory back to the eager engine's after `close`; after `finish` the
+    graphed engine holds exactly its live keys' tensors more, within the
+    budget."""
     _, out = runs
     g = out["graphed"]["engine"].step_graphs
     assert g.pool_bytes_captured > 0 and g.pool_bytes() == 0
-    assert out["graphed"]["allocated"] == out["eager"]["allocated"]
+    graphed, eager = out["graphed"], out["eager"]
+    assert graphed["allocated"] == eager["allocated"] + graphed["live"], (
+        graphed["allocated"], eager["allocated"], graphed["live"])
+    assert 0 < graphed["live"] <= graphed["held"] <= g.budget
+    # both engines also hold the next request's logits by then
+    assert graphed["closed"] == eager["closed"], (graphed["closed"], eager["closed"])
+
+
+def test_next_instance_after_finish_replays_from_its_first_step(runs):
+    """After the last `finish` the keys stay live: the next instance's
+    decode replays from its first step (no eager step, no capture), its
+    logits bitwise equal to the eager engine's."""
+    _, out = runs
+    assert out["graphed"]["next_counts"] == (0, 0, NEXT)
+    eager, graphed = out["eager"]["next"], out["graphed"]["next"]
+    assert len(eager) == len(graphed) == 1 + NEXT
+    for i, (e, g) in enumerate(zip(eager, graphed)):
+        assert torch.equal(e, g), i

@@ -88,10 +88,11 @@ class RecordingCapture:
     reruns it into the static outputs, a flat list of tensors, without
     counting (a real replay runs no Python).  An output that is one of the
     step's static inputs is copied onto itself, as a real replay leaves
-    it."""
+    it.  Each capture reports `pool_bytes` of private pool."""
 
-    def __init__(self):
+    def __init__(self, pool_bytes: int = 0):
         self.replayed = 0
+        self.pool_bytes = pool_bytes
 
     def __call__(self, fn):
         outputs = fn()
@@ -107,4 +108,4 @@ class RecordingCapture:
             def reset(self):
                 pass
 
-        return Graph(), outputs, 0
+        return Graph(), outputs, self.pool_bytes
