@@ -12,7 +12,7 @@ run outside a checkout of the repository):
    started together);
 2. kernels: each kernel against its plain PyTorch version on the card, at
    the main path's shapes and a sweep of the edges of each design (fp32 /
-   bf16; paged decode: lengths 0 and 1, at and +-1 around the split-KV
+   bf16; paged decode: lengths 0 and 1, at and +-1 around the split
    boundaries, full tables, a long context, G of 1 to 16 (7 included),
    head dim 64 / 128; prefill: S of 1 to 512 around the 64-row tiles,
    sliding windows, non-causal, head dim 32 / 64 / 128 / 256, G of 1 / 4 /
@@ -255,9 +255,9 @@ def _check(name: str, out, ref, dt: str, desc: str) -> float:
 
 
 def _timing_row(name: str, label: str, dt: str, kernel, plain, library, lib_label: str,
-                nbytes: int, flops: int, err: float) -> dict:
+                nbytes: int, flops: int, err: float, note: str = "") -> dict:
     """Kernel, plain-version and library times of one shape beside its bound,
-    achieved rate and share of the bound."""
+    achieved rate and share of the bound (and `note`)."""
     ms = cuda_time_ms(kernel)
     plain_ms = cuda_time_ms(plain)
     library_ms = cuda_time_ms(library)
@@ -267,7 +267,7 @@ def _timing_row(name: str, label: str, dt: str, kernel, plain, library, lib_labe
     log(f"[timing] {name} {label}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
         f"{lib_label} {library_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by}); "
         f"achieved {rate}, {bound_ms / ms:.3f} of the bound, "
-        f"{ms / library_ms:.2f}x the library call")
+        f"{ms / library_ms:.2f}x the library call{note}")
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": library_ms}
 
@@ -282,33 +282,38 @@ def check_kernels() -> dict:
 
     from repro_torch.kernels import ops
     from repro_torch.kernels.flash_attention import visible_pairs
-    from repro_torch.kernels.paged_attention import split_plan
+    from repro_torch.kernels.paged_attention import row_groups, split_plan
     from repro_torch.kernels.ref import flash_attention_ref, paged_attention_ref
 
     dev = torch.device("cuda")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     gen = torch.Generator().manual_seed(0)
     rows = {}
     main_args = {}  # the main path's shapes, for `dispatch_cost`
 
-    # K1: (label, dtype, B, H, K, hd, T, N, lengths).  Timed: the main path's
+    def plan(B, H, K, N, T):
+        """The kernel's (split_tokens, splits) at these shapes on this card."""
+        return split_plan(B, K * row_groups(H // K), N, T, sms)
+
+    # K1: (label, dtype, B, H, K, hd, T, N, lengths), lengths either a tuple
+    # or a function of the case's split_tokens.  Timed: the main path's
     # decode shape (llama3.2-1b, lengths after prefill + decode) and one long
     # conversation at batch 1.  The rest put lengths at split boundaries and
     # +-1 of them, a full table, length 0 and 1, G of 1 / 4 / 8 / 16.
-    st16, _ = split_plan(64, 16)
-    st32, _ = split_plan(8, 32)
     paged_cases = [
         ("main", "bfloat16", 4, 32, 8, 64, 16, 64, (545, 417, 233, 97)),
         ("long", "bfloat16", 1, 32, 8, 64, 16, 256, (4000,)),
-        ("", "bfloat16", 4, 32, 8, 64, 16, 64, (st16 - 1, st16, st16 + 1, 1)),
-        ("", "bfloat16", 4, 32, 8, 64, 16, 64, (2 * st16 - 1, 2 * st16, 2 * st16 + 1, 1024)),
+        ("", "bfloat16", 4, 32, 8, 64, 16, 64, lambda st: (st - 1, st, st + 1, 1)),
+        ("", "bfloat16", 4, 32, 8, 64, 16, 64,
+         lambda st: (2 * st - 1, 2 * st, 2 * st + 1, 1024)),
         ("", "float32", 4, 32, 8, 64, 16, 64, (1, 17, 200, 1024)),
-        ("", "float32", 4, 32, 8, 64, 16, 64, (st16 - 1, st16 + 1, 0, 3 * st16)),
+        ("", "float32", 4, 32, 8, 64, 16, 64, lambda st: (st - 1, st + 1, 0, 3 * st)),
         ("", "bfloat16", 4, 32, 4, 128, 16, 64, (1, 33, 513, 1000)),
         ("", "float32", 3, 32, 4, 128, 16, 32, (5, 16, 509)),
         ("", "bfloat16", 2, 16, 1, 128, 32, 4, (1, 100)),
-        ("", "bfloat16", 2, 8, 8, 64, 16, 16, (st16, 256)),
-        ("", "float32", 2, 8, 8, 128, 16, 16, (st16 + 1, 255)),
-        ("", "float32", 3, 32, 8, 64, 32, 8, (st32 - 1, st32, 256)),
+        ("", "bfloat16", 2, 8, 8, 64, 16, 16, lambda st: (st, 256)),
+        ("", "float32", 2, 8, 8, 128, 16, 16, lambda st: (st + 1, 255)),
+        ("", "float32", 3, 32, 8, 64, 32, 8, lambda st: (st - 1, st, 256)),
         ("", "bfloat16", 1, 32, 8, 128, 16, 256, (4096,)),
         # deepseek-7b's decode in [serverless]: MHA (G 1), hd 128, B 1, the
         # last step of a 256-token prompt and 16 greedy tokens
@@ -316,10 +321,11 @@ def check_kernels() -> dict:
          (SERVERLESS_PROMPT + SERVERLESS_GEN,)),
         # qwen2-vl-7b's G 7 (H 28, K 4): lengths at and +-1 around the
         # split boundaries, and 1
-        ("", "bfloat16", 4, 28, 4, 128, 16, 64, (st16 - 1, st16, st16 + 1, 1)),
-        ("", "float32", 4, 28, 4, 128, 16, 64, (2 * st16 - 1, 2 * st16, 2 * st16 + 1, 1)),
-        ("", "bfloat16", 3, 28, 4, 128, 16, 64, (3 * st16 + 1, 1, 2 * st16)),
-        ("", "float32", 2, 28, 4, 128, 16, 64, (st16, 1)),
+        ("", "bfloat16", 4, 28, 4, 128, 16, 64, lambda st: (st - 1, st, st + 1, 1)),
+        ("", "float32", 4, 28, 4, 128, 16, 64,
+         lambda st: (2 * st - 1, 2 * st, 2 * st + 1, 1)),
+        ("", "bfloat16", 3, 28, 4, 128, 16, 64, lambda st: (3 * st + 1, 1, 2 * st)),
+        ("", "float32", 2, 28, 4, 128, 16, 64, lambda st: (st, 1)),
         # the last decode step of [families]: a 512-token prompt and 16 greedy
         # tokens, qwen3-moe-30b-a3b (G 8) and qwen2-vl-7b (G 7), hd 128, B 1
         ("qwen3-moe-30b-a3b", "bfloat16", 1, 32, 4, 128, 16, 64,
@@ -335,6 +341,9 @@ def check_kernels() -> dict:
     ]
     for label, dt, B, H, K, hd, T, N, lengths in paged_cases:
         dtype = getattr(torch, dt)
+        st, splits = plan(B, H, K, N, T)
+        if callable(lengths):
+            lengths = lengths(st)
         args = _paged_inputs(gen, dtype, B, H, K, hd, T, N, lengths, dev)
         out = ops.paged_attention(*args)
         ref = paged_attention_ref(*args)
@@ -358,12 +367,16 @@ def check_kernels() -> dict:
         nbytes = (2 * live * K * hd * kp.element_size()   # K and V rows read
                   + 2 * B * H * hd * q.element_size()     # q read, out written
                   + sum(math.ceil(n / T) for n in lengths) * 4 + B * 4)
+        head_blocks = K * row_groups(H // K)
+        live_blocks = sum(math.ceil(n / st) for n in lengths) * head_blocks
         row = _timing_row(
             "paged_attention", f"{label} {dt} B{B} H{H} K{K} hd{hd} T{T} N{N} "
             f"lengths {list(lengths)}", dt,
             lambda: ops.paged_attention(*args), lambda: paged_attention_ref(*args),
             lambda: F.scaled_dot_product_attention(q[:, :, None], kd, vd, attn_mask=mask),
-            "sdpa on pre-gathered dense K/V", nbytes, 4 * live * H * hd, err)
+            "sdpa on pre-gathered dense K/V", nbytes, 4 * live * H * hd, err,
+            f"; {live_blocks} live blocks of {splits * head_blocks * B} launched "
+            f"(splits of {st} tokens)")
         if label != "long":
             # no single PyTorch call does paged attention: the gathered SDPA
             # above is printed, not reported as the library time
@@ -770,12 +783,11 @@ def profile_decode_steps(inst, tok, steps: int, tag: str, what: str) -> dict:
         log(f"[{tag}] decode: device time not measured (the profiler saw no CUDA events)")
         return {}
     busy_ms = sum(by_name.values())
-    k1_ms = sum(t for n, t in by_name.items()
-                if "paged_split_kernel" in n or "paged_combine_kernel" in n)
+    k1_ms = sum(t for n, t in by_name.items() if "paged_attention_kernel" in n)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
     log(f"[{tag}] decode {what} (profiled): wall {wall_ms:.3f} ms/step, "
         f"device busy {busy_ms:.3f} ms/step, idle share {1 - busy_ms / wall_ms:.3f}, "
-        f"{n_kernels / steps:.0f} kernels/step, K1 (split + combine) {k1_ms:.3f} ms/step; top: "
+        f"{n_kernels / steps:.0f} kernels/step, K1 {k1_ms:.3f} ms/step; top: "
         + "; ".join(f"{n[:60]} {t:.3f} ms" for n, t in top))
     return {"wall_ms": wall_ms, "busy_ms": busy_ms, "idle": 1 - busy_ms / wall_ms,
             "kernels": n_kernels / steps,

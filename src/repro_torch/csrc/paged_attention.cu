@@ -1,4 +1,4 @@
-// E-Attention paged decode attention for Hopper (sm_90a), split-KV.
+// E-Attention paged decode attention for Hopper (sm_90a): one launch a call.
 //
 // Replaces the TPU Pallas kernel `paged_attention` / `_kernel` in
 // src/repro/kernels/paged_attention.py (pallas_call at line 120).
@@ -8,233 +8,538 @@
 // which live in the pages tables[b, 0..] of a (P, T, K, hd) slab.  Scale
 // 1/sqrt(hd), positions >= lengths[b] masked, online softmax in float32
 // (m, l, acc), out = acc / max(l, 1e-30) in the input dtype; length 0
-// gives zeros.  float32 and bfloat16 share the design; the arithmetic is
-// float32 either way.
+// gives zeros.  In bfloat16 the probabilities are rounded to bfloat16
+// before P.V, as the plain version rounds them.
 //
-// What bounds it on an H100: device-memory bytes.  Each (b, kh) reads
-// lengths[b] * hd * 2 (K and V) elements once and does 4 * G flops per
-// element pair, far below the ~295 flop/byte ridge, so the floor is
-// B * ctx * K * hd * 2 * sizeof(T) / 3.35 TB/s per layer.  The only way to
-// it is to have every SM pulling bytes at once, with several loads in
-// flight each.
+// What bounds it on an H100: latency.  Its bytes (lengths[b] * hd * 2 K and
+// V elements per (b, kh)) take 0.2-2.5 us at 3.35 TB/s on the served shapes
+// and its operations far less, so the time is the launch plus the chain of
+// dependent memory round trips a block makes (length, table entries, K and
+// V rows, partials, the merge).  The design keeps that chain short and
+// every SM busy:
 //
-// Design (flash-decoding): one call makes two launches.
-//  1. `paged_split_kernel`, grid (splits, K, B).  The context is cut into
-//     splits of `split_tokens` tokens (a whole number of pages, computed by
-//     the wrapper from the table's static shape (N, T), never from
-//     `lengths`, so the host reads nothing back).  A block whose split
-//     starts at or past lengths[b] exits before it reads a table entry, and
-//     no block reads an entry at or past ceil(len / T).  Inside a block,
-//     each warp takes rows of K: lanes take 16-byte pieces of a row (hd 64
-//     bf16: 8 lanes a row, 4 rows a warp-load) and every load of the split
-//     is issued before the first score is reduced; the G query rows of the
-//     kv head sit in shared memory and a score is a warp-shuffle reduction
-//     over the row's lanes.  V streams into shared memory by cp.async
-//     meanwhile.  The split's softmax (max, exp, sum) runs one warp per
-//     query row with every lane busy; P.V runs one thread per (row, dim).
-//     The block writes its (m, l, acc) to float32 scratch.
-//  2. `paged_combine_kernel`, grid (H, B): merges the live splits' partials
-//     of each (b, head) into the output.
+//  - One launch, grid (splits, K * row groups, B).  The context is cut into
+//    splits of `split_tokens` tokens (whole pages; `split_plan` in the
+//    wrapper sizes them from the static shapes and the SM count, never from
+//    `lengths`, so the host reads nothing back).  A block whose split starts
+//    at or past lengths[b] exits before it reads a table entry, and no block
+//    reads an entry at or past ceil(len / T).  A sequence with one live
+//    split is written by its block directly.  Otherwise each block writes
+//    its (m, l, acc) to float32 scratch, fences, and takes a ticket from an
+//    int32 counter of its (b, kv head, row group) with atomicAdd; the block
+//    that draws the last ticket merges the live splits in index order
+//    (never atomics on the output: a graph replay is bitwise the eager
+//    call) and puts the counter back to 0, so every launch, replays
+//    included, finds it at 0.  The counters are a per-device buffer the
+//    wrapper allocates once, outside any capture and outside PyTorch's
+//    caching allocator; launches on it are ordered by the compute stream.
+//  - K and V rows stream into shared memory by cp.async, 16 bytes a lane,
+//    neighbouring lanes on neighbouring pieces of a row, rows padded by 16
+//    bytes so that ldmatrix reads them without bank conflicts.  A stage
+//    holds 64 tokens (four warps x 16); a split longer than one stage runs
+//    a two-stage ring, the next stage's loads in flight while this one's
+//    products run.  Masked slots are zero-filled.
+//  - bfloat16 ("mma" core): the G query rows of a kv head are padded to
+//    16 and Q.K^T and P.V run as mma.sync m16n8k16 bf16 products with
+//    float32 accumulators.  Each warp owns 16 tokens of a stage and keeps
+//    its own online softmax; the four warps are merged through shared
+//    memory at the end of the split.  P is rounded to bf16 in registers
+//    and reused as the A operand of P.V (the accumulator layout of two
+//    n8 tiles is the A layout of one k16 step).
+//  - float32 ("simt" core): CUDA-core dot products over the same ring
+//    (TF32 would miss 2e-5): scores one thread per (token, row pair), the
+//    stage's softmax one warp per row, P.V one thread per (dim, row set).
+//    bfloat16 takes mma at every G, G 1 too: its 16-row tile of one real
+//    row beat these dot products 2.3-2.6x on an H100 (PERF.md).
 #include "common.cuh"
 
 namespace {
 
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
-constexpr int kUnroll = 4;  // warp-loads of K in flight per lane
+constexpr int kChunk = 64;  // tokens of one ring stage: 16 a warp
+constexpr int kRows = 16;   // query rows of a block: the M of an mma tile
 
-// Row stride of the score tile: a multiple of 4 floats, so the V rows after
-// it stay 16-byte aligned for cp.async whatever the page size.
-__host__ __device__ inline int score_stride(int split_tokens) {
-  return (split_tokens + 3) & ~3;
+enum Core : int { kMma = 0, kSimt = 1 };
+
+struct Args {
+  const void* q;
+  const void* k_pages;
+  const void* v_pages;
+  const int* tables;
+  const int* lengths;
+  void* out;
+  float* part_acc;  // (B, H, splits, hd)
+  float* part_m;    // (B, H, splits)
+  float* part_l;
+  int* counters;  // (B, K * groups), 0 between launches
+  int H, K, G, groups, T, N, split_tokens, splits;
+  float scale;
+};
+
+// Shared memory of a block: the ring, the split's result (acc, m, l of 16
+// rows), the core's own buffers, a flag and the split's page ids.
+template <typename T, int HD, int CORE>
+struct Smem {
+  static constexpr int RS = HD + 16 / static_cast<int>(sizeof(T));  // ring row stride
+  static constexpr size_t kStage = size_t(2) * kChunk * RS * sizeof(T);  // K and V rows
+  static constexpr size_t kRes = size_t(kRows) * HD * 4 + 2 * kRows * 4;
+  static constexpr size_t kCore =
+      CORE == kMma ? size_t(2) * kWarps * kRows * 4  // each warp's m and l
+                   : size_t(kRows) * HD * 4 + size_t(kRows) * kChunk * 4 + 3 * kRows * 4;
+  static size_t bytes(int stages, int pages) {
+    return stages * kStage + kRes + kCore + 16 + size_t(pages) * 4;
+  }
+};
+
+__device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t& r0, uint32_t& r1,
+                                        uint32_t& r2, uint32_t& r3) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3) : "r"(addr));
+}
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t addr, uint32_t& r0, uint32_t& r1,
+                                              uint32_t& r2, uint32_t& r3) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3) : "r"(addr));
+}
+// c += a (16x16, row) . b (16x8, col), bf16 in, float32 accumulate
+__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a, uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+// The probability as P.V consumes it: rounded to the input dtype.
+template <typename T> __device__ __forceinline__ float as_input(float p) {
+  return to_float(from_float<T>(p));
 }
 
-size_t split_smem_bytes(int G, int hd, int split_tokens, int T_blk, size_t elem) {
-  return static_cast<size_t>(G) * hd * 4                             // q rows, float
-         + static_cast<size_t>(G) * score_stride(split_tokens) * 4   // scores / probabilities
-         + static_cast<size_t>(split_tokens) * hd * elem  // V rows
-         + static_cast<size_t>(split_tokens / T_blk) * 4; // page ids
+// The 16 x HD query tile of rows [0, rows) as mma A fragments, zero-padded.
+template <int HD>
+__device__ __forceinline__ void load_q_frags(const __nv_bfloat16* qb, int rows,
+                                             uint32_t (&qa)[HD / 16][4]) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const uint32_t* r0 = reinterpret_cast<const uint32_t*>(qb + g * HD);
+  const uint32_t* r1 = reinterpret_cast<const uint32_t*>(qb + (g + 8) * HD);
+#pragma unroll
+  for (int ks = 0; ks < HD / 16; ++ks) {
+    const int c = (ks * 16 + 2 * t) / 2;  // in bf16 pairs
+    qa[ks][0] = g < rows ? __ldg(r0 + c) : 0u;
+    qa[ks][1] = g + 8 < rows ? __ldg(r1 + c) : 0u;
+    qa[ks][2] = g < rows ? __ldg(r0 + c + 4) : 0u;
+    qa[ks][3] = g + 8 < rows ? __ldg(r1 + c + 4) : 0u;
+  }
 }
 
-template <typename T, int HD>
-__global__ void __launch_bounds__(kThreads)
-paged_split_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
-                   const T* __restrict__ v_pages, const int* __restrict__ tables,
-                   const int* __restrict__ lengths, float* __restrict__ part_acc,
-                   float* __restrict__ part_m, float* __restrict__ part_l, int H, int K,
-                   int T_blk, int N, int split_tokens, int splits, float scale) {
+// One split of one (b, kv head, row group) through the bf16 tensor cores.
+// `issue(c, stage)` starts the cp.async loads of chunk c; on return `res`,
+// `resm`, `resl` hold the split's acc, m and l of rows [0, rows).
+template <int HD, typename Issue>
+__device__ __forceinline__ void mma_core(const Args& a, const __nv_bfloat16* qb, int rows,
+                                         int n, int stages, __nv_bfloat16* ring,
+                                         float* core, float* res, float* resm, float* resl,
+                                         Issue issue) {
+  using S = Smem<__nv_bfloat16, HD, kMma>;
+  constexpr int RS = S::RS;
+  const int tid = threadIdx.x, w = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
+  uint32_t qa[HD / 16][4];
+  load_q_frags<HD>(qb, rows, qa);
+  float o[HD / 8][4];
+#pragma unroll
+  for (int i = 0; i < HD / 8; ++i) o[i][0] = o[i][1] = o[i][2] = o[i][3] = 0.f;
+  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;  // rows g and g + 8
+  const int chunks = (n + kChunk - 1) / kChunk;
+  issue(0, 0);
+  for (int c = 0; c < chunks; ++c) {
+    if (c + 1 < chunks) {
+      issue(c + 1, (c + 1) % stages);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const int base = c * kChunk + w * 16;  // the warp's first token in the split
+    if (base < n) {  // warp-uniform
+      const __nv_bfloat16* ks = ring + (c % stages) * (2 * kChunk * RS) + w * 16 * RS;
+      const __nv_bfloat16* vs = ks + kChunk * RS;
+      float s[2][4] = {};
+#pragma unroll
+      for (int kk = 0; kk < HD / 16; ++kk) {
+        uint32_t b0, b1, b2, b3;
+        ldsm_x4(smem_addr(ks + ((lane >> 4) * 8 + (lane & 7)) * RS + kk * 16 +
+                          ((lane >> 3) & 1) * 8),
+                b0, b1, b2, b3);
+        mma_bf16(s[0], qa[kk], b0, b1);
+        mma_bf16(s[1], qa[kk], b2, b3);
+      }
+      float mx0 = -INFINITY, mx1 = -INFINITY;
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int tok = base + nt * 8 + 2 * t + (e & 1);
+          s[nt][e] = tok < n ? s[nt][e] * a.scale : -INFINITY;
+          if (e < 2) mx0 = fmaxf(mx0, s[nt][e]);
+          else mx1 = fmaxf(mx1, s[nt][e]);
+        }
+      const float n0 = fmaxf(m0, quad_max(mx0)), n1 = fmaxf(m1, quad_max(mx1));
+      const float z0 = n0 == -INFINITY ? 0.f : n0, z1 = n1 == -INFINITY ? 0.f : n1;
+      const float al0 = expf(m0 - z0), al1 = expf(m1 - z1);
+      m0 = n0;
+      m1 = n1;
+      float p[2][4];
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) p[nt][e] = expf(s[nt][e] - (e < 2 ? z0 : z1));
+      l0 = l0 * al0 + p[0][0] + p[0][1] + p[1][0] + p[1][1];
+      l1 = l1 * al1 + p[0][2] + p[0][3] + p[1][2] + p[1][3];
+      const uint32_t pa[4] = {pack_bf16(p[0][0], p[0][1]), pack_bf16(p[0][2], p[0][3]),
+                              pack_bf16(p[1][0], p[1][1]), pack_bf16(p[1][2], p[1][3])};
+#pragma unroll
+      for (int dp = 0; dp < HD / 16; ++dp) {
+        o[2 * dp][0] *= al0; o[2 * dp][1] *= al0; o[2 * dp][2] *= al1; o[2 * dp][3] *= al1;
+        o[2 * dp + 1][0] *= al0; o[2 * dp + 1][1] *= al0;
+        o[2 * dp + 1][2] *= al1; o[2 * dp + 1][3] *= al1;
+        uint32_t b0, b1, b2, b3;
+        ldsm_x4_trans(smem_addr(vs + (((lane >> 3) & 1) * 8 + (lane & 7)) * RS + dp * 16 +
+                                (lane >> 4) * 8),
+                      b0, b1, b2, b3);
+        mma_bf16(o[2 * dp], pa, b0, b1);
+        mma_bf16(o[2 * dp + 1], pa, b2, b3);
+      }
+    }
+    __syncthreads();  // the stage is free for the load after next
+  }
+  // merge the four warps: each warp's m and l, then its acc rows through the
+  // ring (no longer read), weighted by exp(m_w - max)
+  float* wm = core;
+  float* wl = core + kWarps * kRows;
+  l0 = quad_sum(l0);
+  l1 = quad_sum(l1);
+  if (t == 0) {
+    wm[w * kRows + g] = m0;
+    wm[w * kRows + g + 8] = m1;
+    wl[w * kRows + g] = l0;
+    wl[w * kRows + g + 8] = l1;
+  }
+  constexpr int OS = HD + 8;  // float row stride of the warps' acc rows
+  static_assert(size_t(kWarps) * kRows * OS * 4 <= S::kStage, "acc rows fit one stage");
+  float* ob = reinterpret_cast<float*>(ring);
+#pragma unroll
+  for (int dt = 0; dt < HD / 8; ++dt) {
+    const int col = dt * 8 + 2 * t;
+    *reinterpret_cast<float2*>(ob + (w * kRows + g) * OS + col) = make_float2(o[dt][0], o[dt][1]);
+    *reinterpret_cast<float2*>(ob + (w * kRows + g + 8) * OS + col) =
+        make_float2(o[dt][2], o[dt][3]);
+  }
+  __syncthreads();
+  for (int i = tid; i < rows * HD; i += kThreads) {
+    const int r = i / HD, d = i % HD;
+    float mx = -INFINITY;
+#pragma unroll
+    for (int v = 0; v < kWarps; ++v) mx = fmaxf(mx, wm[v * kRows + r]);
+    float acc = 0.f, l = 0.f;
+#pragma unroll
+    for (int v = 0; v < kWarps; ++v) {
+      const float mv = wm[v * kRows + r];
+      const float f = mv == -INFINITY ? 0.f : expf(mv - mx);
+      acc += f * ob[(v * kRows + r) * OS + d];
+      l += f * wl[v * kRows + r];
+    }
+    res[r * HD + d] = acc;
+    if (d == 0) {
+      resm[r] = mx;
+      resl[r] = l;
+    }
+  }
+  __syncthreads();
+}
+
+// The same on the CUDA cores, for float32.
+template <typename T, int HD, typename Issue>
+__device__ __forceinline__ void simt_core(const Args& a, const T* qb, int rows, int n,
+                                          int stages, T* ring, float* core, float* res,
+                                          float* resm, float* resl, Issue issue) {
+  using S = Smem<T, HD, kSimt>;
+  constexpr int RS = S::RS;
   constexpr int VEC = VecWidth<T>::N;
-  constexpr int LPR = HD * static_cast<int>(sizeof(T)) / 16;  // lanes per K row
-  constexpr int RPW = 32 / LPR;                               // rows per warp-load
-  static_assert(LPR >= 1 && LPR <= 32 && 32 % LPR == 0, "row must fit a warp");
-  const int G = H / K;
-  const int split = blockIdx.x;
-  const int kh = blockIdx.y;
-  const int b = blockIdx.z;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
+  constexpr int RSTEP = kThreads / HD;  // rows between a thread's P.V rows
+  constexpr int NACC = kRows / RSTEP;
+  static_assert(kThreads % HD == 0 && kThreads == 2 * kChunk, "thread mapping");
+  const int tid = threadIdx.x, w = tid >> 5, lane = tid & 31;
+  float* qf = core;                 // [kRows][HD]
+  float* sc = qf + kRows * HD;      // [kRows][kChunk]
+  float* sm = sc + kRows * kChunk;  // running max, sum and this stage's rescale
+  float* sl = sm + kRows;
+  float* sa = sl + kRows;
+  for (int i = tid; i < rows * HD / VEC; i += kThreads) load_vec(qb + i * VEC, qf + i * VEC);
+  if (tid < kRows) {
+    sm[tid] = -INFINITY;
+    sl[tid] = 0.f;
+  }
+  const int d = tid % HD, r0 = tid / HD;
+  float acc[NACC];
+#pragma unroll
+  for (int i = 0; i < NACC; ++i) acc[i] = 0.f;
+  const int chunks = (n + kChunk - 1) / kChunk;
+  issue(0, 0);
+  for (int c = 0; c < chunks; ++c) {
+    if (c + 1 < chunks) {
+      issue(c + 1, (c + 1) % stages);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const T* ks = ring + (c % stages) * (2 * kChunk * RS);
+    const T* vs = ks + kChunk * RS;
+    {  // scores: token j of the stage against rows gp, gp + 2, ...
+      const int j = tid % kChunk, gp = tid / kChunk;
+      float s[kRows / 2];
+#pragma unroll
+      for (int i = 0; i < kRows / 2; ++i) s[i] = 0.f;
+      const T* kr = ks + j * RS;
+#pragma unroll 4
+      for (int p = 0; p < HD / VEC; ++p) {
+        float kf[VEC];
+        unpack_vec<T>(*reinterpret_cast<const uint4*>(kr + p * VEC), kf);
+#pragma unroll
+        for (int i = 0; i < kRows / 2; ++i) {
+          if (gp + 2 * i < rows) {
+            const float* qq = qf + (gp + 2 * i) * HD + p * VEC;
+#pragma unroll
+            for (int e = 0; e < VEC; ++e) s[i] += qq[e] * kf[e];
+          }
+        }
+      }
+      const bool live = c * kChunk + j < n;
+#pragma unroll
+      for (int i = 0; i < kRows / 2; ++i)
+        if (gp + 2 * i < rows) sc[(gp + 2 * i) * kChunk + j] = live ? s[i] * a.scale : -INFINITY;
+    }
+    __syncthreads();
+    for (int r = w; r < rows; r += kWarps) {  // the stage's softmax, one warp a row
+      float* sr = sc + r * kChunk;
+      const float x0 = sr[lane], x1 = sr[lane + 32];
+      float mx = fmaxf(x0, x1);
+#pragma unroll
+      for (int o = 16; o >= 1; o >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+      const float mo = sm[r];
+      const float mn = fmaxf(mo, mx);
+      const float z = mn == -INFINITY ? 0.f : mn;
+      const float p0 = expf(x0 - z), p1 = expf(x1 - z);
+      float sum = p0 + p1;
+#pragma unroll
+      for (int o = 16; o >= 1; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
+      sr[lane] = as_input<T>(p0);
+      sr[lane + 32] = as_input<T>(p1);
+      __syncwarp();
+      if (lane == 0) {
+        const float al = expf(mo - z);
+        sa[r] = al;
+        sl[r] = sl[r] * al + sum;
+        sm[r] = mn;
+      }
+    }
+    __syncthreads();
+    const int nj = min(kChunk, n - c * kChunk);
+#pragma unroll
+    for (int i = 0; i < NACC; ++i)
+      if (r0 + i * RSTEP < rows) acc[i] *= sa[r0 + i * RSTEP];
+    for (int j = 0; j < nj; ++j) {  // P.V
+      const float v = to_float(vs[j * RS + d]);
+#pragma unroll
+      for (int i = 0; i < NACC; ++i)
+        if (r0 + i * RSTEP < rows) acc[i] += sc[(r0 + i * RSTEP) * kChunk + j] * v;
+    }
+    __syncthreads();
+  }
+#pragma unroll
+  for (int i = 0; i < NACC; ++i)
+    if (r0 + i * RSTEP < rows) res[(r0 + i * RSTEP) * HD + d] = acc[i];
+  if (tid < rows) {
+    resm[tid] = sm[tid];
+    resl[tid] = sl[tid];
+  }
+  __syncthreads();
+}
 
-  const int len = lengths[b];
-  const int s0 = split * split_tokens;
+template <typename T, int HD, int CORE>
+__global__ void __launch_bounds__(kThreads)
+paged_attention_kernel(const Args a, int stages) {
+  using S = Smem<T, HD, CORE>;
+  constexpr int RS = S::RS;
+  const int split = blockIdx.x, hb = blockIdx.y, b = blockIdx.z;
+  const int kh = hb / a.groups;
+  const int h0 = kh * a.G + (hb % a.groups) * kRows;  // the block's first query head
+  const int rows = min(kRows, a.G - (hb % a.groups) * kRows);
+  const int tid = threadIdx.x;
+  T* out = static_cast<T*>(a.out) + (static_cast<size_t>(b) * a.H + h0) * HD;
+
+  const int len = min(a.lengths[b], a.N * a.T);  // the plain version masks past N * T
+  if (len <= 0) {  // zeros, written by the first split's block
+    if (split == 0)
+      for (int i = tid; i < rows * HD; i += kThreads) out[i] = from_float<T>(0.f);
+    return;
+  }
+  const int s0 = split * a.split_tokens;
   if (s0 >= len) return;  // dead split: touches no table entry
-  const int n = min(split_tokens, len - s0);
-  const int npages = (n + T_blk - 1) / T_blk;
+  const int n = min(a.split_tokens, len - s0);
+  const int live = (len + a.split_tokens - 1) / a.split_tokens;
 
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* qs = reinterpret_cast<float*>(smem_raw);            // [G][HD]
-  const int sst = score_stride(split_tokens);
-  float* ss = qs + G * HD;                                   // [G][sst]
-  T* vs = reinterpret_cast<T*>(ss + G * sst);                // [split_tokens][HD]
-  int* pg = reinterpret_cast<int*>(vs + split_tokens * HD);  // [split_tokens / T]
+  T* ring = reinterpret_cast<T*>(smem_raw);
+  float* res = reinterpret_cast<float*>(smem_raw + stages * S::kStage);  // [kRows][HD]
+  float* resm = res + kRows * HD;
+  float* resl = resm + kRows;
+  float* core = resl + kRows;
+  int* flag = reinterpret_cast<int*>(reinterpret_cast<unsigned char*>(core) + S::kCore);
+  int* pg = flag + 4;  // the split's page ids
 
-  const int* tb = tables + static_cast<size_t>(b) * N + s0 / T_blk;
+  const int npages = (n + a.T - 1) / a.T;  // entries below ceil(len / T) only
+  const int* tb = a.tables + static_cast<size_t>(b) * a.N + s0 / a.T;
   for (int i = tid; i < npages; i += kThreads) pg[i] = tb[i];
-  const T* qb = q + (static_cast<size_t>(b) * H + static_cast<size_t>(kh) * G) * HD;
-  for (int i = tid; i < G * HD / VEC; i += kThreads) load_vec(qb + i * VEC, qs + i * VEC);
   __syncthreads();
 
-  const size_t row_stride = static_cast<size_t>(K) * HD;  // elements between slots
-  auto row_off = [&](int j) {  // element offset of token j's (kh) row in the slab
-    return (static_cast<size_t>(pg[j / T_blk]) * T_blk + j % T_blk) * row_stride +
-           static_cast<size_t>(kh) * HD;
+  const size_t row_stride = static_cast<size_t>(a.K) * HD;  // elements between slots
+  const T* kbase = static_cast<const T*>(a.k_pages) + static_cast<size_t>(kh) * HD;
+  const T* vbase = static_cast<const T*>(a.v_pages) + static_cast<size_t>(kh) * HD;
+  auto issue = [&](int c, int stage) {  // chunk c's K and V rows -> ring stage
+    constexpr int VEC = VecWidth<T>::N;
+    constexpr int PPR = HD / VEC;  // 16-byte pieces a row
+    T* ks = ring + stage * (2 * kChunk * RS);
+    T* vs = ks + kChunk * RS;
+    for (int i = tid; i < kChunk * PPR; i += kThreads) {
+      const int j = i / PPR, p = i % PPR;
+      const int tok = c * kChunk + j;
+      const uint32_t dk = smem_addr(ks + j * RS + p * VEC);
+      const uint32_t dv = smem_addr(vs + j * RS + p * VEC);
+      if (tok < n) {
+        const size_t off =
+            (static_cast<size_t>(pg[tok / a.T]) * a.T + tok % a.T) * row_stride + p * VEC;
+        cp_async16(dk, kbase + off);
+        cp_async16(dv, vbase + off);
+      } else {  // a masked slot: zeros, nothing read
+        cp_async16(dk, kbase, 0);
+        cp_async16(dv, vbase, 0);
+      }
+    }
+    cp_async_commit();
   };
 
-  // V rows of the split -> shared memory, in flight while the scores run
-  for (int i = tid; i < n * LPR; i += kThreads) {
-    const int j = i / LPR;
-    const int c = i % LPR;
-    cp_async16(smem_addr(vs + j * HD + c * VEC), v_pages + row_off(j) + c * VEC);
-  }
-  cp_async_commit();
+  const T* qb = static_cast<const T*>(a.q) + (static_cast<size_t>(b) * a.H + h0) * HD;
+  if constexpr (CORE == kMma)
+    mma_core<HD>(a, qb, rows, n, stages, ring, core, res, resm, resl, issue);
+  else
+    simt_core<T, HD>(a, qb, rows, n, stages, ring, core, res, resm, resl, issue);
 
-  // scores: lane (r, c) holds piece c of row r of each warp-load
-  const int r = lane / LPR;
-  const int c = lane % LPR;
-  constexpr int kPass = kUnroll * kWarps * RPW;  // tokens per pass of the block
-  for (int j0 = 0; j0 < n; j0 += kPass) {
-    uint4 kr[kUnroll];
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const int j = j0 + (u * kWarps + warp) * RPW + r;
-      kr[u] = make_uint4(0u, 0u, 0u, 0u);
-      if (j < n) kr[u] = __ldg(reinterpret_cast<const uint4*>(k_pages + row_off(j) + c * VEC));
-    }
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const int j = j0 + (u * kWarps + warp) * RPW + r;
-      if (j0 + u * kWarps * RPW >= n) break;  // warp-uniform: no row of this load
-      float kf[VEC];
-      if (j < n) {
-        unpack_vec<T>(kr[u], kf);
-      } else {
-#pragma unroll
-        for (int e = 0; e < VEC; ++e) kf[e] = 0.f;
-      }
-      for (int g = 0; g < G; ++g) {
-        const float* qg = qs + g * HD + c * VEC;
-        float d = 0.f;
-#pragma unroll
-        for (int e = 0; e < VEC; ++e) d += qg[e] * kf[e];
-#pragma unroll
-        for (int o = LPR / 2; o >= 1; o >>= 1) d += __shfl_xor_sync(0xffffffffu, d, o);
-        if (c == 0 && j < n) ss[g * sst + j] = d * scale;
-      }
-    }
+  if (live == 1) {  // the only live split: the output directly
+    for (int i = tid; i < rows * HD; i += kThreads)
+      out[i] = from_float<T>(res[i] / fmaxf(resl[i / HD], 1e-30f));
+    return;
   }
+  const size_t hrow = static_cast<size_t>(b) * a.H + h0;
+  for (int i = tid; i < rows * HD; i += kThreads) {
+    const int r = i / HD, d = i % HD;
+    a.part_acc[((hrow + r) * a.splits + split) * HD + d] = res[i];
+  }
+  if (tid < rows) {
+    a.part_m[(hrow + tid) * a.splits + split] = resm[tid];
+    a.part_l[(hrow + tid) * a.splits + split] = resl[tid];
+  }
+  __threadfence();
   __syncthreads();
-
-  // the split's softmax: one warp per query row
-  const size_t part = (static_cast<size_t>(b) * H + static_cast<size_t>(kh) * G) * splits;
-  for (int g = warp; g < G; g += kWarps) {
-    float* sg = ss + g * sst;
-    float mx = -INFINITY;
-    for (int j = lane; j < n; j += 32) mx = fmaxf(mx, sg[j]);
-#pragma unroll
-    for (int o = 16; o >= 1; o >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
-    float sum = 0.f;
-    for (int j = lane; j < n; j += 32) {
-      const float p = expf(sg[j] - mx);
-      sg[j] = p;
-      sum += p;
-    }
-#pragma unroll
-    for (int o = 16; o >= 1; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
-    if (lane == 0) {
-      part_m[part + static_cast<size_t>(g) * splits + split] = mx;
-      part_l[part + static_cast<size_t>(g) * splits + split] = sum;
-    }
-  }
-  cp_async_wait<0>();
+  int* counter = a.counters + static_cast<size_t>(b) * gridDim.y + hb;
+  if (tid == 0) *flag = atomicAdd(counter, 1) == live - 1;
   __syncthreads();
-
-  // P.V: one thread per (query row, dim)
-  for (int o = tid; o < G * HD; o += kThreads) {
-    const int g = o / HD;
-    const int d = o % HD;
-    const float* pgp = ss + g * sst;
-    float a = 0.f;
-#pragma unroll 4
-    for (int j = 0; j < n; ++j) a += pgp[j] * to_float(vs[j * HD + d]);
-    part_acc[(part + static_cast<size_t>(g) * splits + split) * HD + d] = a;
+  if (!*flag) return;
+  __threadfence();
+  // The last block merges every live split's partials: a thread a (row, 4
+  // dims) walks the splits in index order, eight at a time: their m, l and
+  // 16 bytes of acc are loaded at once, then the running max and sums are
+  // brought up to the eight (one rescale a group, so the chain of dependent
+  // steps is live / 8 long).
+  constexpr int C4 = HD / 4;  // 4-dim columns of a row
+  constexpr int kGroup = 8;
+  for (int i = tid; i < rows * C4; i += kThreads) {
+    const int r = i / C4, c = i % C4;
+    const float* pm = a.part_m + (hrow + r) * a.splits;
+    const float* pl = a.part_l + (hrow + r) * a.splits;
+    const float4* pa = reinterpret_cast<const float4*>(a.part_acc + (hrow + r) * a.splits * HD) + c;
+    float mx = -INFINITY, l = 0.f;
+    float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int s0 = 0; s0 < live; s0 += kGroup) {
+      float ms[kGroup], ls[kGroup];
+      float4 v[kGroup];
+#pragma unroll
+      for (int j = 0; j < kGroup; ++j) {
+        const bool in = s0 + j < live;
+        ms[j] = in ? __ldcg(pm + s0 + j) : -INFINITY;
+        ls[j] = in ? __ldcg(pl + s0 + j) : 0.f;
+        v[j] = in ? __ldcg(pa + static_cast<size_t>(s0 + j) * C4) : make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+      float mn = mx;
+#pragma unroll
+      for (int j = 0; j < kGroup; ++j) mn = fmaxf(mn, ms[j]);  // finite: split s0 is live
+      const float f = expf(mx - mn);
+      acc.x *= f;
+      acc.y *= f;
+      acc.z *= f;
+      acc.w *= f;
+      l *= f;
+#pragma unroll
+      for (int j = 0; j < kGroup; ++j) {
+        const float g = expf(ms[j] - mn);
+        acc.x += v[j].x * g;
+        acc.y += v[j].y * g;
+        acc.z += v[j].z * g;
+        acc.w += v[j].w * g;
+        l += ls[j] * g;
+      }
+      mx = mn;
+    }
+    const float inv = 1.f / fmaxf(l, 1e-30f);
+    T* o = out + r * HD + 4 * c;
+    o[0] = from_float<T>(acc.x * inv);
+    o[1] = from_float<T>(acc.y * inv);
+    o[2] = from_float<T>(acc.z * inv);
+    o[3] = from_float<T>(acc.w * inv);
   }
+  if (tid == 0) *counter = 0;  // ready for the next launch
 }
 
-template <typename T, int HD>
-__global__ void __launch_bounds__(HD)
-paged_combine_kernel(const float* __restrict__ part_acc, const float* __restrict__ part_m,
-                     const float* __restrict__ part_l, const int* __restrict__ lengths,
-                     T* __restrict__ out, int H, int split_tokens, int splits) {
-  const int h = blockIdx.x;
-  const int b = blockIdx.y;
-  const int d = threadIdx.x;
-  const int live = (lengths[b] + split_tokens - 1) / split_tokens;  // 0 for length 0
-  const size_t base = (static_cast<size_t>(b) * H + h) * splits;
-  float mx = -INFINITY;
-  for (int s = 0; s < live; ++s) mx = fmaxf(mx, part_m[base + s]);
-  float l = 0.f, a = 0.f;
-#pragma unroll 4
-  for (int s = 0; s < live; ++s) {
-    const float w = expf(part_m[base + s] - mx);
-    l += w * part_l[base + s];
-    a += w * part_acc[(base + s) * HD + d];
-  }
-  out[(static_cast<size_t>(b) * H + h) * HD + d] = from_float<T>(a / fmaxf(l, 1e-30f));
-}
-
-template <typename T, int HD>
-cudaError_t launch(const void* q, const void* k_pages, const void* v_pages,
-                   const int* tables, const int* lengths, void* out, float* part_acc,
-                   float* part_m, float* part_l, int B, int H, int K, int T_blk, int N,
-                   int split_tokens, int splits, cudaStream_t stream) {
-  const int G = H / K;
-  const size_t smem = split_smem_bytes(G, HD, split_tokens, T_blk, sizeof(T));
-  constexpr auto kernel = paged_split_kernel<T, HD>;
+template <typename T, int HD, int CORE>
+cudaError_t launch(const Args& a, int B, cudaStream_t stream) {
+  const int stages = a.split_tokens > kChunk ? 2 : 1;
+  const size_t smem = Smem<T, HD, CORE>::bytes(stages, a.split_tokens / a.T);
+  constexpr auto kernel = paged_attention_kernel<T, HD, CORE>;
   cudaError_t err = allow_smem<kernel>(smem);
   if (err != cudaSuccess) return err;
-  kernel<<<dim3(splits, K, B), kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k_pages),
-      static_cast<const T*>(v_pages), tables, lengths, part_acc, part_m, part_l, H, K,
-      T_blk, N, split_tokens, splits, 1.0f / sqrtf(static_cast<float>(HD)));
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  paged_combine_kernel<T, HD><<<dim3(H, B), HD, 0, stream>>>(
-      part_acc, part_m, part_l, lengths, static_cast<T*>(out), H, split_tokens, splits);
+  kernel<<<dim3(a.splits, a.K * a.groups, B), kThreads, smem, stream>>>(a, stages);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t dispatch_hd(int hd, const void* q, const void* kp, const void* vp,
-                        const int* tables, const int* lengths, void* out, float* pa,
-                        float* pm, float* pl, int B, int H, int K, int T_blk, int N,
-                        int split_tokens, int splits, cudaStream_t stream) {
+template <typename T, int CORE>
+cudaError_t dispatch_hd(int hd, const Args& a, int B, cudaStream_t stream) {
   switch (hd) {
-    case 32: return launch<T, 32>(q, kp, vp, tables, lengths, out, pa, pm, pl, B, H, K,
-                                  T_blk, N, split_tokens, splits, stream);
-    case 64: return launch<T, 64>(q, kp, vp, tables, lengths, out, pa, pm, pl, B, H, K,
-                                  T_blk, N, split_tokens, splits, stream);
-    case 128: return launch<T, 128>(q, kp, vp, tables, lengths, out, pa, pm, pl, B, H, K,
-                                    T_blk, N, split_tokens, splits, stream);
+    case 32: return launch<T, 32, CORE>(a, B, stream);
+    case 64: return launch<T, 64, CORE>(a, B, stream);
+    case 128: return launch<T, 128, CORE>(a, B, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -244,28 +549,42 @@ cudaError_t dispatch_hd(int hd, const void* q, const void* kp, const void* vp,
 // q (B, H, hd); k/v pages (P, T, K, hd) of one layer; tables (B, N) int32;
 // lengths (B,) int32; out (B, H, hd); scratch part_acc (B, H, splits, hd)
 // and part_m, part_l (B, H, splits) float32, with split_tokens a multiple of
-// T and splits = ceil(N * T / split_tokens).  All contiguous on the device.
-// Returns the cudaError_t of the two launches (0 = success).
+// T and splits * split_tokens >= N * T; counters: B * K * ceil(G / 16) int32
+// that read 0 (and read 0 again when the launch ends).  bfloat16 runs on the
+// tensor cores, float32 on the CUDA cores.  All contiguous on the device.
+// Returns the launch's cudaError_t (0 = success).
 extern "C" int paged_attention_launch(const void* q, const void* k_pages,
                                       const void* v_pages, const void* tables,
                                       const void* lengths, void* out, void* part_acc,
-                                      void* part_m, void* part_l, int B, int H, int K,
-                                      int hd, int T_blk, int N, int split_tokens,
-                                      int splits, int dtype, void* stream) {
+                                      void* part_m, void* part_l, void* counters, int B,
+                                      int H, int K, int hd, int T_blk, int N,
+                                      int split_tokens, int splits, int dtype,
+                                      void* stream) {
   if (B == 0) return cudaSuccess;
-  if (split_tokens <= 0 || split_tokens % T_blk || splits * split_tokens < N * T_blk)
+  if (K <= 0 || H % K || T_blk <= 0 || split_tokens <= 0 || split_tokens % T_blk ||
+      static_cast<long long>(splits) * split_tokens < static_cast<long long>(N) * T_blk)
     return cudaErrorInvalidValue;
-  const int* tb = static_cast<const int*>(tables);
-  const int* ln = static_cast<const int*>(lengths);
-  float* pa = static_cast<float*>(part_acc);
-  float* pm = static_cast<float*>(part_m);
-  float* pl = static_cast<float*>(part_l);
+  Args a{q, k_pages, v_pages, static_cast<const int*>(tables),
+         static_cast<const int*>(lengths), out, static_cast<float*>(part_acc),
+         static_cast<float*>(part_m), static_cast<float*>(part_l),
+         static_cast<int*>(counters), H, K, H / K, (H / K + kRows - 1) / kRows, T_blk, N,
+         split_tokens, splits, 1.0f / sqrtf(static_cast<float>(hd))};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == kFloat32)
-    return dispatch_hd<float>(hd, q, k_pages, v_pages, tb, ln, out, pa, pm, pl, B, H, K,
-                              T_blk, N, split_tokens, splits, s);
-  if (dtype == kBFloat16)
-    return dispatch_hd<__nv_bfloat16>(hd, q, k_pages, v_pages, tb, ln, out, pa, pm, pl, B,
-                                      H, K, T_blk, N, split_tokens, splits, s);
+  if (dtype == kFloat32) return dispatch_hd<float, kSimt>(hd, a, B, s);
+  if (dtype == kBFloat16) return dispatch_hd<__nv_bfloat16, kMma>(hd, a, B, s);
   return cudaErrorInvalidValue;
+}
+
+// A zeroed buffer of n int32 ticket counters on the current device, for
+// `paged_attention_launch`; the memset is queued on `stream`.  Never freed:
+// a captured graph keeps its address.  Returns null on failure.
+extern "C" void* paged_attention_counters(int n, void* stream) {
+  void* p = nullptr;
+  const size_t bytes = static_cast<size_t>(n) * sizeof(int);
+  if (cudaMalloc(&p, bytes) != cudaSuccess) return nullptr;
+  if (cudaMemsetAsync(p, 0, bytes, static_cast<cudaStream_t>(stream)) != cudaSuccess) {
+    cudaFree(p);
+    return nullptr;
+  }
+  return p;
 }

@@ -13,12 +13,17 @@ tensor launches the kernel on the current stream, or raises (so does a call
 that autograd would record: the kernel has no backward).  The wrapper
 checks devices, dtypes, shapes and contiguity, never values: it reads
 nothing back from the device, so a decode step stays free of host syncs.
-The kernel is split-KV (flash-decoding): its grid and float32 scratch for
-the splits' partial softmax states come from `split_plan`, that is from the
-table's static shape alone.  One call makes two launches (the splits, then
-their combination); `paged_attention.launches` counts calls.  A plain CUDA
-tensor launches directly; any other (a FakeTensor, a meta tensor) goes
-through the operator ``repro_torch::paged_attention``
+One call is one launch (the source note of `csrc/paged_attention.cu`
+has the design): its grid comes from `split_plan`, that is from the static
+shapes and the card's SM count alone, and blocks of a sequence with several
+live splits leave float32 partials in per-call scratch and merge them in
+the last of them, counted by a per-device buffer of int32 tickets
+(`_counters`) that every launch leaves at 0.  bfloat16 runs on the tensor
+cores (`mma.sync`, the G query rows of a kv head padded to 16; G 1 too: its
+tile of one real row beat CUDA-core dot products 2.3-2.6x on an H100,
+PERF.md), float32 on the CUDA cores (TF32 would miss 2e-5).
+`paged_attention.launches` counts calls.  A plain CUDA tensor launches directly; any other (a FakeTensor, a
+meta tensor) goes through the operator ``repro_torch::paged_attention``
 (`torch.library.custom_op`), whose fake gives the output's shape and
 launches nothing.
 """
@@ -35,15 +40,33 @@ from repro_torch.kernels.ref import paged_attention_ref
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (32, 64, 128)
-SPLIT_TARGET = 64  # tokens per split-KV block, rounded up to whole pages
+ROWS = 16  # query rows of a block: one mma tile; G > 16 takes several blocks a kv head
+BLOCKS_PER_SM = 4  # the split plan's ceiling: blocks a full table may launch, per SM
+MAX_SPLITS = 32  # the split plan's ceiling: partials the last block of a sequence merges
+COUNTERS_MIN = 4096  # ticket counters allocated at first use
 
 
-def split_plan(N: int, T: int) -> tuple[int, int]:
-    """(split_tokens, splits) of the split-KV grid for tables of N pages of T
-    tokens.  Fixed by the table's static shape, never by the lengths, so the
-    host reads nothing back from the device to launch a decode step."""
-    split_tokens = T * -(-SPLIT_TARGET // T)
-    return split_tokens, -(-N * T // split_tokens)
+def row_groups(G: int) -> int:
+    """Blocks a kv head's G query rows take (16 rows each)."""
+    return -(-G // ROWS)
+
+
+def split_plan(B: int, K: int, N: int, T: int, sms: int) -> tuple[int, int]:
+    """(split_tokens, splits) of the grid for B sequences of K kv-head blocks
+    (kv heads times `row_groups`) over tables of N pages of T tokens, on a
+    card of `sms` SMs.  Splits are whole pages, as fine as keeps a full
+    table's B * K * splits blocks within BLOCKS_PER_SM * sms and a sequence's
+    splits within MAX_SPLITS (one page at the least; one split when B * K
+    alone fills the card).  Finer splits put more blocks to work but give the
+    merging block more partials to read: on an H100 the two ceilings came out
+    fastest at every served shape but G 7-8 at 528 tokens, where they are
+    within 0.0001 ms of the fastest (PERF.md, `scripts/k1_split_sweep.py`).
+    Fixed by the
+    static shapes, never by the lengths, so the host reads nothing back from
+    the device to launch a decode step."""
+    most = max(1, min(MAX_SPLITS, BLOCKS_PER_SM * sms // (B * K)))  # splits a (b, kv head)
+    pages = -(-N // most)
+    return pages * T, -(-N // pages)
 
 
 def split_scratch_shapes(B: int, H: int, hd: int, splits: int) -> dict[str, tuple]:
@@ -54,10 +77,47 @@ def split_scratch_shapes(B: int, H: int, hd: int, splits: int) -> dict[str, tupl
 
 @functools.lru_cache(maxsize=None)
 def _launcher():
-    fn = build.library("paged_attention").paged_attention_launch
-    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+    lib = build.library("paged_attention")
+    fn = lib.paged_attention_launch
+    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    return fn
+    alloc = lib.paged_attention_counters
+    alloc.argtypes = [ctypes.c_int, ctypes.c_void_p]
+    alloc.restype = ctypes.c_void_p
+    return fn, alloc
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+_COUNTERS: dict[int, tuple[int, int]] = {}  # device index -> (address, capacity)
+
+
+def _counters(device: torch.device, n: int, stream: int) -> int:
+    """Address of at least n ticket counters on `device` that read 0.
+
+    One buffer per device, allocated by the kernel's library (cudaMalloc,
+    outside PyTorch's caching allocator, so no graph pool or memory reading
+    sees it) with its memset queued on `stream`, outside any capture; each
+    launch leaves its counters at 0 again, and launches on it run in the
+    order of the compute stream.  A larger buffer replaces a smaller one;
+    the smaller stays allocated, since a captured graph holds its address."""
+    addr, cap = _COUNTERS.get(device.index, (0, 0))
+    if n <= cap:
+        return addr
+    if torch.cuda.is_current_stream_capturing():
+        raise RuntimeError(
+            f"paged_attention needs {n} ticket counters but has {cap}: call it once "
+            "outside the capture at this batch first")
+    cap = max(n, 2 * cap, COUNTERS_MIN)
+    with torch.cuda.device(device):
+        addr = _launcher()[1](cap, stream)
+    if not addr:
+        raise RuntimeError(f"paged_attention could not allocate {cap} ticket counters")
+    _COUNTERS[device.index] = (addr, cap)
+    return addr
 
 
 def check_no_autograd(name: str, tensors: dict[str, torch.Tensor]):
@@ -102,15 +162,18 @@ def _launch(q, k_pages, v_pages, block_tables, lengths):
          "lengths": lengths},
         {"q": tuple(DTYPE_CODES), "k_pages": kv, "v_pages": kv,
          "block_tables": (torch.int32,), "lengths": (torch.int32,)})
-    split_tokens, splits = split_plan(N, T)
+    blocks = K * row_groups(H // K)
+    split_tokens, splits = split_plan(B, blocks, N, T, _sm_count(q.device))
     part = {name: torch.empty(shape, dtype=torch.float32, device=q.device)
             for name, shape in split_scratch_shapes(B, H, hd, splits).items()}
     out = torch.empty_like(q)
-    err = _launcher()(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-                      block_tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-                      part["acc"].data_ptr(), part["m"].data_ptr(), part["l"].data_ptr(),
-                      B, H, K, hd, T, N, split_tokens, splits, DTYPE_CODES[q.dtype],
-                      torch.cuda.current_stream(q.device).cuda_stream)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    counters = _counters(q.device, B * blocks, stream)
+    err = _launcher()[0](q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+                         block_tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
+                         part["acc"].data_ptr(), part["m"].data_ptr(), part["l"].data_ptr(),
+                         counters, B, H, K, hd, T, N, split_tokens, splits,
+                         DTYPE_CODES[q.dtype], stream)
     if err:
         raise RuntimeError(f"paged_attention launch failed: cudaError {err}")
     paged_attention.launches += 1
@@ -140,7 +203,12 @@ def _paged_flops(q_shape, k_shape, v_shape, tables_shape, lengths_shape, *args,
 
 
 def paged_attention(q, k_pages, v_pages, block_tables, lengths):
-    """q: (B, H, hd) -> (B, H, hd). See module docstring for page layout."""
+    """q: (B, H, hd) -> (B, H, hd). See module docstring for page layout.
+
+    On CUDA, calls on one device must run one after another: they share the
+    device's ticket counters, so two calls in flight at once on two streams
+    would mix their tickets.  The port issues every call on its compute
+    stream (a captured call replays there too)."""
     if q.device.type == "cpu":
         return paged_attention_ref(q, k_pages, v_pages, block_tables, lengths)
     if q.device.type not in ("cuda", "meta"):  # meta: shapes only, through the fake

@@ -24,8 +24,8 @@ import torch  # noqa: E402
 from repro.kernels import ops as ref_ops  # noqa: E402
 from repro.models.common import attention_dense as ref_attention_dense  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
-from repro_torch.kernels.paged_attention import (check_cuda_inputs, split_plan,  # noqa: E402
-                                                 split_scratch_shapes)
+from repro_torch.kernels.paged_attention import (  # noqa: E402
+    BLOCKS_PER_SM, MAX_SPLITS, check_cuda_inputs, row_groups, split_plan, split_scratch_shapes)
 from repro_torch.kernels.ref import flash_attention_ref, paged_attention_ref  # noqa: E402
 
 from torch_port_helpers import TOL, max_err, to_torch  # noqa: E402
@@ -175,19 +175,67 @@ def test_wrapper_input_checks_reject_what_the_kernel_cannot_take():
 
 
 
+# (B, kv-head blocks, N, T, lengths) of chip_smoke.py's labelled K1 shapes: the
+# main path, the long conversation, deepseek-7b, qwen3-moe-30b-a3b,
+# qwen2-vl-7b, yi-9b, codeqwen1.5-7b; and the main path's fused B 8 step
+LABELLED_PAGED = {"main": (4, 8, 64, 16, (545, 417, 233, 97)),
+                  "long": (1, 8, 256, 16, (4000,)),
+                  "deepseek-7b": (1, 32, 64, 16, (272,)),
+                  "qwen3-moe-30b-a3b": (1, 4, 64, 16, (528,)),
+                  "qwen2-vl-7b": (1, 4, 64, 16, (528,)),
+                  "yi-9b": (1, 4, 64, 16, (272,)),
+                  "codeqwen1.5-7b": (1, 32, 64, 16, (272,)),
+                  "main fused B 8": (8, 8, 64, 16, (600,) * 8)}
+H100_SMS = 132
+
+
+def check_plan(B, K, N, T, sms):
+    """The split plan's invariants: whole pages covering the table with no
+    split wholly past it, a full table's blocks within the per-SM ceiling
+    (or B * K blocks when those alone exceed it), at most MAX_SPLITS splits,
+    and no finer plan within both ceilings."""
+    st, splits = split_plan(B, K, N, T, sms)
+    assert st % T == 0 and st >= T
+    assert (splits - 1) * st < N * T <= splits * st
+    assert B * K * splits <= max(BLOCKS_PER_SM * sms, B * K)
+    assert splits <= MAX_SPLITS
+    if st > T:  # one page less a split breaks a ceiling
+        finer = -(-N // (st // T - 1))
+        assert finer > MAX_SPLITS or B * K * finer > BLOCKS_PER_SM * sms
+    return st, splits
+
+
 @pytest.mark.parametrize("N,T", [(64, 16), (256, 16), (8, 32), (4, 64), (3, 128), (85, 48),
                                  (1, 1), (7, 5)])
 def test_split_plan_covers_the_table_in_whole_pages(N, T):
-    """The split-KV grid: splits of whole pages, at least 64 tokens, covering
-    the table's N * T slots with no split wholly past them."""
-    st, splits = split_plan(N, T)
-    assert st % T == 0 and st >= 64 and st - T < 64
-    assert (splits - 1) * st < N * T <= splits * st
+    """The grid's splits at batch 1 to 64, MHA to 4 kv heads, on a full H100
+    and on a card of 16 SMs."""
+    for B, K in [(1, 4), (1, 8), (1, 32), (4, 8), (8, 8), (64, 8), (256, 32)]:
+        for sms in (H100_SMS, 16):
+            check_plan(B, K, N, T, sms)
+
+
+@pytest.mark.parametrize("label", list(LABELLED_PAGED))
+def test_split_plan_bounds_at_the_labelled_shapes(label):
+    """At each labelled shape: at most 4 x 132 blocks for a full table, at
+    most 32 partials for the last block to merge, and, for the G 7-8 models
+    at batch 1 (4 kv heads), more live blocks at the shape's lengths than the
+    64-token splits of the two-launch design gave (20 and 36)."""
+    B, K, N, T, lengths = LABELLED_PAGED[label]
+    st, splits = check_plan(B, K, N, T, H100_SMS)
+    assert B * K * splits <= 4 * H100_SMS
+    live = sum(-(-n // st) for n in lengths) * K
+    assert 0 < live <= B * K * splits
+    if B == 1 and K == 4:
+        assert live > sum(-(-n // 64) for n in lengths) * K
 
 
 def test_split_scratch_follows_the_static_shapes_only():
-    st, splits = split_plan(64, 16)  # llama3.2-1b's main path: 64 pages of 16
+    st, splits = split_plan(4, 8, 64, 16, H100_SMS)  # llama3.2-1b's main path: 64 pages of 16
     assert (st, splits) == (64, 16)
     shapes = split_scratch_shapes(4, 32, 64, splits)
     assert shapes == {"acc": (4, 32, 16, 64), "m": (4, 32, 16), "l": (4, 32, 16)}
-    assert split_plan(256, 16) == (64, 64)  # one 4k-token conversation
+    assert split_plan(1, 8, 256, 16, H100_SMS) == (128, 32)  # one 4k-token conversation
+    assert split_plan(1, 4, 64, 16, H100_SMS) == (32, 32)  # yi-9b, qwen3-moe (G 8)
+    assert split_plan(1, 8 * row_groups(32), 64, 16, H100_SMS) == (32, 32)  # G 32: 2 blocks
+    assert row_groups(7) == 1 and row_groups(16) == 1 and row_groups(17) == 2

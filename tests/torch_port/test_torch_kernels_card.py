@@ -8,9 +8,11 @@ runs on a GPU machine that has only PyTorch:
 
 Shapes are tests/test_kernels.py's PAGED_CASES / FLASH_CASES (copied here,
 since that module imports JAX) plus llama3.2-1b's main-path shapes, and the
-edges of the kernels' designs: lengths at and around the split-KV
-boundaries, full tables and long contexts (paged decode); S at and around
-the 64-row tiles, windows and head dims 32 / 64 / 128 (bf16 prefill).
+edges of the kernels' designs: lengths at and around the split boundaries of
+`split_plan` on this card, full tables and long contexts, one live split
+(written directly) and several (merged by the last block), the ticket
+counters across graph replays, G of 1 to 32 (paged decode); S at and
+around the 64-row tiles, windows and head dims 32 / 64 / 128 (bf16 prefill).
 Tolerances are that file's: 2e-5 in fp32, 2e-2 in bf16.
 """
 import numpy as np
@@ -19,7 +21,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import ops  # noqa: E402
-from repro_torch.kernels.paged_attention import split_plan  # noqa: E402
+from repro_torch.kernels.paged_attention import row_groups, split_plan  # noqa: E402
 from repro_torch.kernels.ref import flash_attention_ref, paged_attention_ref  # noqa: E402
 
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
@@ -95,6 +97,12 @@ def test_paged_kernel_never_reads_table_entries_past_the_length(cuda_device):
     assert max_err(out, ref) < TOL["float32"]
 
 
+def plan(dev, B, H, K, N, T):
+    """The kernel's (split_tokens, splits) for these shapes on this card."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    return split_plan(B, K * row_groups(H // K), N, T, sms)
+
+
 def paged_inputs(rng, B, H, K, hd, T, N, dtype, dev, P=None):
     P = P or B * N + 3
     q = randn(rng, (B, H, hd), dtype, dev)
@@ -111,7 +119,7 @@ def test_paged_kernel_at_split_boundaries(cuda_device, dtype, hd, H, K):
     """Lengths at, one before and one past the split-KV boundaries, length 1,
     and a full table (every split live)."""
     T, N = 16, 16
-    st, splits = split_plan(N, T)
+    st, splits = plan(cuda_device, 7, H, K, N, T)
     assert splits > 2
     lens = [1, st - 1, st, st + 1, 2 * st - 1, 2 * st + 1, N * T]
     rng = np.random.default_rng(hd + H + K)
@@ -149,7 +157,7 @@ def test_paged_kernel_dead_splits_read_no_table_entry(cuda_device, dtype):
     of such splits hold ids far outside the slab, while every entry of the
     live splits stays valid (past the length too)."""
     T, N = 16, 20
-    st, splits = split_plan(N, T)
+    st, splits = plan(cuda_device, 4, 8, 2, N, T)
     lens = [1, st, st + 1, 2 * st]
     rng = np.random.default_rng(12)
     q, kp, vp, tables = paged_inputs(rng, len(lens), 8, 2, 64, T, N, dtype, cuda_device)
@@ -160,6 +168,137 @@ def test_paged_kernel_dead_splits_read_no_table_entry(cuda_device, dtype):
     lengths = torch.tensor(lens, dtype=torch.int32, device=cuda_device)
     out = ops.paged_attention(q, kp, vp, poisoned, lengths)
     assert max_err(out, paged_attention_ref(q, kp, vp, tables, lengths)) < TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("H,K", [(28, 4), (16, 1), (32, 1)])  # G = 7, 16, 32 (two row groups)
+@pytest.mark.parametrize("hd", [64, 128])
+def test_paged_kernel_gqa_groups(cuda_device, dtype, H, K, hd):
+    """G 7 (qwen2-vl-7b), 16 (one full mma tile) and 32 (two blocks a kv
+    head) at lengths on both sides of the split boundaries and a full
+    table."""
+    T, N = 16, 32
+    st, splits = plan(cuda_device, 5, H, K, N, T)
+    lens = [1, st, st + 1, 3 * st - 1, N * T]
+    rng = np.random.default_rng(H + K + hd)
+    q, kp, vp, tables = paged_inputs(rng, len(lens), H, K, hd, T, N, dtype, cuda_device)
+    lengths = torch.tensor(lens, dtype=torch.int32, device=cuda_device)
+    out = ops.paged_attention(q, kp, vp, tables, lengths)
+    assert max_err(out, paged_attention_ref(q, kp, vp, tables, lengths)) < TOL[dtype]
+
+
+@pytest.mark.parametrize("H,K", [(32, 32), (32, 8), (28, 4)])  # G = 1, 4, 7
+@pytest.mark.parametrize("hd", [32, 64, 128])
+def test_paged_kernel_bf16_tensor_core_rows(cuda_device, H, K, hd):
+    """bfloat16 takes the tensor cores at every G, G 1 (one real row of the
+    16-row tile) too: within the bf16 tolerance over one and several
+    splits."""
+    T, N = 16, 16
+    st, _ = plan(cuda_device, 3, H, K, N, T)
+    lens = [st - 3, 2 * st + 5, N * T]
+    rng = np.random.default_rng(H + K + hd + 3)
+    q, kp, vp, tables = paged_inputs(rng, len(lens), H, K, hd, T, N, "bfloat16", cuda_device)
+    lengths = torch.tensor(lens, dtype=torch.int32, device=cuda_device)
+    out = ops.paged_attention(q, kp, vp, tables, lengths)
+    assert max_err(out, paged_attention_ref(q, kp, vp, tables, lengths)) < TOL["bfloat16"]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_paged_kernel_single_live_split_writes_directly(cuda_device, dtype):
+    """Every sequence within its first split: each block writes the output
+    itself and no ticket is taken (the counters stay 0: the next call,
+    with several live splits, is right)."""
+    B, H, K, hd, T, N = 4, 32, 8, 64, 16, 64
+    st, splits = plan(cuda_device, B, H, K, N, T)
+    assert splits > 1
+    rng = np.random.default_rng(21)
+    q, kp, vp, tables = paged_inputs(rng, B, H, K, hd, T, N, dtype, cuda_device)
+    for lens in ([1, st // 2, st - 1, st], [st + 1, 2 * st, N * T, 1]):
+        lengths = torch.tensor(lens, dtype=torch.int32, device=cuda_device)
+        out = ops.paged_attention(q, kp, vp, tables, lengths)
+        assert max_err(out, paged_attention_ref(q, kp, vp, tables, lengths)) < TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("H,K", [(32, 8), (32, 4)])
+def test_paged_kernel_poisoned_entries_past_the_length(cuda_device, dtype, H, K):
+    """Table entries at or past ceil(length / T) hold ids far outside the
+    slab, at lengths of one and of several live splits."""
+    T, N = 16, 40
+    st, _ = plan(cuda_device, 4, H, K, N, T)
+    lens = [3, st + 7, 3 * st + 1, N * T - 5]
+    rng = np.random.default_rng(H + K + 31)
+    q, kp, vp, tables = paged_inputs(rng, len(lens), H, K, 128, T, N, dtype, cuda_device)
+    poisoned = tables.clone()
+    for b, n in enumerate(lens):
+        poisoned[b, -(-n // T):] = 1 << 30
+    lengths = torch.tensor(lens, dtype=torch.int32, device=cuda_device)
+    out = ops.paged_attention(q, kp, vp, poisoned, lengths)
+    assert max_err(out, paged_attention_ref(q, kp, vp, tables, lengths)) < TOL[dtype]
+
+
+def test_paged_kernel_is_one_launch_a_call(cuda_device):
+    """At lengths of many live splits a call runs one CUDA kernel (the
+    profiler's device events), and `launches` counts it once."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    B, H, K, hd, T, N = 4, 32, 8, 64, 16, 64
+    st, splits = plan(cuda_device, B, H, K, N, T)
+    rng = np.random.default_rng(22)
+    q, kp, vp, tables = paged_inputs(rng, B, H, K, hd, T, N, "bfloat16", cuda_device)
+    lengths = torch.tensor([N * T, 3 * st + 1, 2 * st, 5], dtype=torch.int32,
+                           device=cuda_device)
+    ops.paged_attention(q, kp, vp, tables, lengths)  # built and warm
+    torch.cuda.synchronize()
+    n0 = ops.paged_attention.launches
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = ops.paged_attention(q, kp, vp, tables, lengths)
+        torch.cuda.synchronize()
+    kernels = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA
+               and not e.name.startswith("Memset") and not e.name.startswith("Memcpy")]
+    assert len(kernels) == 1 and "paged_attention_kernel" in kernels[0], kernels
+    assert ops.paged_attention.launches == n0 + 1
+    assert max_err(out, paged_attention_ref(q, kp, vp, tables, lengths)) < TOL["bfloat16"]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_paged_kernel_graph_replays_reset_their_counters(cuda_device, dtype):
+    """One call captured in a CUDA graph and replayed 120 times, lengths and
+    tables rewritten in place between replays (one live split, several,
+    length 0, a full table): each replay within the tolerance of the plain
+    version, so the ticket counters read 0 at every replay; two replays of
+    the same inputs are bitwise equal, and equal to the eager call."""
+    B, H, K, hd, T, N = 3, 32, 4, 128, 16, 48
+    rng = np.random.default_rng(23)
+    q, kp, vp, tables = paged_inputs(rng, B, H, K, hd, T, N, dtype, cuda_device, P=4 * N)
+    lengths = torch.tensor([N * T, 100, 1], dtype=torch.int32, device=cuda_device)
+    eager = ops.paged_attention(q, kp, vp, tables, lengths)  # outside the capture first
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        graph.capture_begin()
+        out = ops.paged_attention(q, kp, vp, tables, lengths)
+        graph.capture_end()
+    torch.cuda.current_stream().wait_stream(side)
+    graph.replay()
+    first = out.clone()
+    graph.replay()
+    assert torch.equal(out, first) and torch.equal(out, eager)
+    for i in range(120):
+        lens = rng.integers(0, N * T + 1, B).astype(np.int32)
+        lens[i % B] = [0, 1, 17, N * T][i % 4]
+        lengths.copy_(torch.from_numpy(lens))
+        tables.copy_(torch.from_numpy(
+            rng.permutation(4 * N)[: B * N].reshape(B, N).astype(np.int32)))
+        graph.replay()
+        ref = paged_attention_ref(q, kp, vp, tables, lengths)
+        assert max_err(out, ref) < TOL[dtype], (i, lens)
+    again = out.clone()
+    graph.replay()
+    assert torch.equal(out, again)
 
 
 @pytest.mark.parametrize("S", [1, 63, 64, 65, 129, 300])
