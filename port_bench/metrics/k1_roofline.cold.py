@@ -1,0 +1,4 @@
+"""`k1_roofline` in a cold-start cell, where it moves `tpot_p90_ms.cold`: the same reading."""
+from pbench.cell import reader
+
+read = reader("metrics", "k1_roofline")

@@ -1,0 +1,4 @@
+"""`prefill.mfu` in a cold-start cell, where it moves `tokens_per_s.cold`: the same reading."""
+from pbench.cell import reader
+
+read = reader("metrics", "prefill.mfu")

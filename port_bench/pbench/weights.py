@@ -1,0 +1,78 @@
+"""A model's random weights, drawn on the device from the run's seed.
+
+One uniform draw per leaf of the program's parameter tree (12 to 15 leaves
+a model: every layer's copy of a weight is one stacked leaf), on the card
+from a `torch.Generator` there, in the dtype the leaf is served in, then
+copied once into page-locked host memory.  The host copy is the model
+store a serverless node keeps: the `Engine` gets it as `init_fn`, so its
+host tier holds these very buffers, and the reference reads the same ones.
+
+Bounds: a weight matrix U(-1/sqrt(fan_in), 1/sqrt(fan_in)), as the
+program's own init draws it; an RMSNorm scale (applied as 1 + w) and a
+q/k/v bias U(-0.1, 0.1) and U(-0.5, 0.5), so that both change the output
+and a path that dropped them would show.
+
+`qk_gain` widens the bounds of `wq` and `wk` by that factor (a
+configuration's ``draw.qk_gain``).  At gain 1 the attention scores of such
+weights spread by about 0.3: every head averages its whole context nearly
+evenly, so a decode step that lost its recent tokens, or read a stale
+cache, serves about the same tokens.  At gain 3 they spread by about 3
+(gain squared), each head leans on a few positions, and a lost context
+changes the served tokens.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+NORM_BOUND = 0.1
+BIAS_BOUND = 0.5
+
+
+def fan_in(name: str, shape: tuple, cfg) -> int:
+    """The contraction width of leaf `name`: D for the embedding, the head
+    and every projection out of the model width; H hd for `wo`, the MLP's
+    width for `wd`."""
+    base = name.rsplit("/", 1)[-1]
+    if base == "wo":
+        return cfg.num_heads * cfg.resolved_head_dim
+    if base == "wd":
+        return shape[-2]
+    return cfg.d_model
+
+
+def leaf_bound(name: str, shape: tuple, cfg, qk_gain: float = 1.0) -> float:
+    base = name.rsplit("/", 1)[-1]
+    if base in ("ln1", "ln2", "final_norm"):
+        return NORM_BOUND
+    if base in ("bq", "bk", "bv"):
+        return BIAS_BOUND
+    gain = qk_gain if base in ("wq", "wk") else 1.0
+    return gain / math.sqrt(fan_in(name, shape, cfg))
+
+
+def draw(cfg, seed: int, device, qk_gain: float = 1.0) -> tuple[object, dict[str, torch.Tensor]]:
+    """(tree, flat): the program's parameter tree over host tensors
+    (page-locked when `device` is a card), and the same tensors by leaf
+    name."""
+    from repro_torch.models import build_model
+    from repro_torch.models.tensors import flatten_params, tree_structure, tree_unflatten
+
+    dev = torch.device(device)
+    specs = build_model(cfg).param_specs()
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    flat = {}
+    for name, spec in flatten_params(specs):
+        b = leaf_bound(name, tuple(spec.shape), cfg, qk_gain)
+        leaf = torch.empty(spec.shape, dtype=spec.dtype, device=dev).uniform_(-b, b, generator=gen)
+        if dev.type == "cuda":
+            host = torch.empty(spec.shape, dtype=spec.dtype, pin_memory=True)
+            host.copy_(leaf)
+            leaf = host
+        flat[name] = leaf
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+        torch.cuda.empty_cache()
+    tree = tree_unflatten(tree_structure(specs), list(flat.values()))
+    return tree, flat
