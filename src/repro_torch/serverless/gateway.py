@@ -36,13 +36,19 @@ card (ROADMAP queue 3):
     evicted tensors.  The port's `Engine` frees them itself (in `load`,
     `release` and `finish_instance`), so the gateways here call nothing
     extra.
+
+The port also traces more: with a tracer on its engine, `Gateway.run_trace`
+opens one ``request`` span a request on the engine's track and hands the
+request's index in the sink (`rid`) to the engine's own spans
+(`obs/device_clock.py`), and its records are `GatewayRecord`s, which carry
+that `rid` and the request's `DataLoadStats`.
 """
 from __future__ import annotations
 
 import contextlib
 import time as _time
 from dataclasses import dataclass
-from typing import Optional, Sequence
+from typing import Any, Optional, Sequence
 
 import torch
 
@@ -76,6 +82,17 @@ class TTFTRecord:
     def ttft(self) -> float:
         return (self.queue_s + self.init_s + self.load_s + self.profile_s
                 + self.prefill_s)
+
+
+@dataclass(frozen=True)
+class GatewayRecord(TTFTRecord):
+    """A real-plane request's `TTFTRecord` with its index in the sink
+    (`rid`, the ``rid`` of its spans) and its load's `DataLoadStats`, which
+    the phase walls are cut from (port-only: the sim plane's records stay
+    the reference's `TTFTRecord`, field for field)."""
+
+    rid: Optional[int] = None
+    load_stats: Any = None
 
 
 class MetricsSink:
@@ -296,7 +313,12 @@ class Gateway:
             nxt = trace[j + 1].model_id
             next_model[j] = (nxt if nxt != trace[j].model_id
                              else next_model[j + 1])
+        eng = self.engine
         for i, req in enumerate(trace):
+            # port-only: one ``request`` span a request on the engine's track
+            # and host clock, parent of the engine's spans of its `rid`
+            tb = _time.perf_counter() if eng.tracer.enabled else 0.0
+            rid = len(self.sink.records)
             now = req.time
             while pi < len(press) and press[pi].time <= now:
                 # trace-clock order like the sim's event heap: keep-alives
@@ -313,7 +335,7 @@ class Gateway:
             queue_s = max(0.0, self._busy_until - now)
 
             t0 = _time.perf_counter()
-            rep = self.engine.load(model, now=now)
+            rep = self.engine.load(model, now=now, rid=rid)
             load_s = _time.perf_counter() - t0
             stats = self.engine.last_load
             # keep the phase split disjoint (one vocabulary with the sim
@@ -326,7 +348,7 @@ class Gateway:
                 # routing decided the next placement: hint it now so its
                 # store read overlaps this request's prefill/decode
                 self.engine.prefetch(next_model[i])
-            inst = self.engine.start_instance(model, num_pages=self.num_pages)
+            inst = self.engine.start_instance(model, num_pages=self.num_pages, rid=rid)
             batch = self._prefill_batch(model, i)
             prefill_s, decode_s = generate(inst, batch, self.gen_tokens)
             inst.finish()
@@ -337,21 +359,25 @@ class Gateway:
             self._busy_until = now + queue_s + service_s
 
             self._finish_request(model, now)
-            rec = TTFTRecord(
+            rec = GatewayRecord(
                 model_id=model, arrival=now, cold=cold, queue_s=queue_s,
                 init_s=stats.init_seconds, load_s=load_s,
                 profile_s=stats.profile_seconds,
                 prefill_s=prefill_s, decode_s=decode_s,
                 prefetched=stats.bytes_prefetched > 0,
-                bytes_from_store=stats.bytes_store)
+                bytes_from_store=stats.bytes_store, rid=rid, load_stats=stats)
             self.sink.add(rec)
+            if eng.tracer.enabled:
+                eng.tracer.emit("request", tb, _time.perf_counter(),
+                                track=f"eng:{eng.engine_id}", cat="request",
+                                args={"rid": rid, "model": model, "cold": cold})
             if self.tracer.enabled:
                 # span-accounting identity (DESIGN.md §18): parent span is
                 # the REPORTED ttft, children the measured phase walls laid
                 # on the trace clock; the engine's cost plane supplies the
                 # load prediction for the span/cost cross-check
                 trace_request(
-                    self.tracer, rid=len(self.sink.records) - 1,
+                    self.tracer, rid=rid,
                     model_id=model, arrival=now, ttft=rec.ttft,
                     phases=[("queue", rec.queue_s), ("init", rec.init_s),
                             ("load", rec.load_s),

@@ -87,6 +87,7 @@ from repro_torch.models.tensors import (HostTensorStore, ModelSpec, PersistentSt
                                         flatten_params, tensor_records,
                                         tree_structure, tree_unflatten)
 from repro_torch.obs import NULL_TRACER, BoundedLog
+from repro_torch.obs.device_clock import DeviceClock
 from repro_torch.serving.step_graph import CudaGraphCapture, StepGraphs
 from repro_torch.stats import EngineFaultStats, snapshot_dict
 
@@ -761,6 +762,9 @@ class Engine:
         self.engine_id = engine_id
         self.tracer = tracer if tracer is not None else NULL_TRACER
         self._track = f"eng:{engine_id}"
+        # the port's device-ended spans (prefill and decode), resolved where
+        # the host already waits: Instance.finish, close and crash
+        self.clock = DeviceClock(self.tracer, self.device)
         self.store = ReuseStore(capacity_bytes, costs or PhaseCosts(paper_l40()))
         self.block_tokens = block_tokens
         self.models: dict[str, RegisteredModel] = {}
@@ -883,7 +887,7 @@ class Engine:
 
     # ------------------------------------------------------------------ load
     def load(self, model_id: str, *, now: float = 0.0,
-             overlap_s: float = 0.0) -> LoadReport:
+             overlap_s: float = 0.0, rid: Optional[int] = None) -> LoadReport:
         """Tensor-granular three-way load over the tiered model store.
 
         Every record resolves through exactly one path (DESIGN.md §11):
@@ -908,13 +912,19 @@ class Engine:
         shares one load signature across both planes); the data plane's own
         overlap is the real prefetch join above, so it is not re-applied
         here.
+        `rid`: the request the load serves, in the args of its port-only
+        ``load.plan`` span (the pool's plan and the evictions it frees).
         """
         reg = self.models[model_id]
+        tp = _time.perf_counter() if self.tracer.enabled else 0.0
         report = self.store.load_model(model_id, reg.records, now=now,
                                        overlap_s=overlap_s)
         # free what the pool just evicted before the misses are allocated,
         # so the card holds no more than the pool
         self.sync_evictions(keep_active=True)
+        if self.tracer.enabled:
+            self.tracer.emit("load.plan", tp, _time.perf_counter(), track=self._track,
+                             cat="engine", args={"rid": rid, "model": model_id})
         stats = DataLoadStats()
         t0 = _time.perf_counter()
         job = self.prefetcher.take(model_id)
@@ -1161,6 +1171,8 @@ class Engine:
         and the captured decode steps).  Idempotent; an engine that issued
         hints holds a daemon thread that references it, so long-lived
         processes churning engines should close them."""
+        if self.tracer.enabled:
+            self.clock.resolve()
         self.prefetcher.close()
         self._drop_graphs()
 
@@ -1188,6 +1200,7 @@ class Engine:
         instance."""
         self.crashes += 1
         if self.tracer.enabled:
+            self.clock.resolve()  # the flight recorder sees the spans in flight
             self.tracer.record_fault("engine.crash",
                                      args={"engine": self.engine_id})
         self.fault_stats.store_retries += self.host_store.read_retries
@@ -1406,12 +1419,14 @@ class Engine:
 
     def start_instance(self, model_id: str, *, max_blocks_per_seq: int = 64,
                        num_pages: int = 128,
-                       attn_mode: str = "kernel") -> "Instance":
+                       attn_mode: str = "kernel", rid: Optional[int] = None) -> "Instance":
         """attn_mode: "kernel" decodes through the E-Attention paged kernel
         (its plain version for CPU tensors); "ref" is the caller's explicit
-        choice of the plain PyTorch version on any device."""
+        choice of the plain PyTorch version on any device.  `rid`: the
+        request the instance serves, in the args of its port-only spans."""
         if attn_mode not in ("kernel", "ref"):
             raise ValueError(f"attn_mode {attn_mode!r}")
+        tb = _time.perf_counter() if self.tracer.enabled else 0.0
         reg = self.models[model_id]
         kv = ElasticKV(self.store, model_id, block_tokens=self.block_tokens,
                        kv_bytes_per_token=max(reg.cfg.kv_bytes_per_token(), 1),
@@ -1419,8 +1434,11 @@ class Engine:
         self._instances_of[model_id] = self._instances_of.get(model_id, 0) + 1
         inst = Instance(self, reg, kv, num_pages=num_pages,
                         max_blocks_per_seq=max_blocks_per_seq,
-                        attn_mode=attn_mode)
+                        attn_mode=attn_mode, rid=rid)
         self._live_instances.setdefault(model_id, []).append(inst)
+        if self.tracer.enabled:
+            self.tracer.emit("instance.start", tb, _time.perf_counter(), track=self._track,
+                             cat="engine", args={"rid": rid, "model": model_id})
         return inst
 
     # ----------------------------------------------- live KV migration (§16)
@@ -1646,9 +1664,10 @@ class Instance:
 
     def __init__(self, engine: Engine, reg: RegisteredModel, kv: ElasticKV, *,
                  num_pages: int, max_blocks_per_seq: int,
-                 attn_mode: str = "kernel"):
+                 attn_mode: str = "kernel", rid: Optional[int] = None):
         self.engine = engine
         self.reg = reg
+        self.rid = rid  # the request served, for the port-only spans
         self.kv = kv
         self.model = build_model(reg.cfg)
         self.attn_mode = attn_mode
@@ -1677,7 +1696,14 @@ class Instance:
     # ---------------------------------------------------------------- prefill
     def prefill(self, batch: dict, *, lengths: Optional[Sequence[int]] = None
                 ) -> torch.Tensor:
-        """Traced entry point — see `_prefill_impl` for the semantics."""
+        """Traced entry point — see `_prefill_impl` for the semantics.
+
+        The ``prefill`` span (the reference's) is the host's dispatch of
+        the prefill: on a CUDA engine it ends when the launches return, not
+        when the card has run them.  Its children ``prefill.forward`` (the
+        model's forward) and ``prefill.kv`` (the block tables and the KV
+        scatter; paged models only) carry ``done``, the second the device
+        finished each: the prefill's completion is the later ``done``."""
         eng = self.engine
         if eng.tracer.enabled:
             with eng.tracer.span("prefill", track=eng._track, cat="engine",
@@ -1695,6 +1721,8 @@ class Instance:
         sequence's LAST REAL position, (B, V).
         """
         eng = self.engine
+        traced = eng.tracer.enabled
+        tb = _time.perf_counter() if traced else 0.0
         params = eng.params_of(self.reg.model_id)
         tokens = batch["tokens"]
         B, S = tokens.shape
@@ -1708,6 +1736,9 @@ class Instance:
         self._host_lens = lens.copy()
         self._lengths = eng.h2d(lens, torch.int32)
         self._step += 1
+        if traced:
+            self._device_span("prefill.forward", tb)
+            tb = _time.perf_counter()
         if not self.paged:
             self._cache = cache
             return last
@@ -1737,7 +1768,14 @@ class Instance:
         kc = k_all[:, :, : nblk * T].reshape(L, B, nblk, T, *k_all.shape[3:])
         vc = v_all[:, :, : nblk * T].reshape(L, B, nblk, T, *v_all.shape[3:])
         _scatter_prefill_kv(self.slab, kc, vc, page_ids, eng.h2d)
+        if traced:
+            self._device_span("prefill.kv", tb)
         return last
+
+    def _device_span(self, name: str, begin: float):
+        eng = self.engine
+        eng.clock.emit(name, begin, track=eng._track,
+                       args={"rid": self.rid, "model": self.reg.model_id})
 
     # -------------------------------------------------------- table plumbing
     def _advance_tables(self):
@@ -1770,7 +1808,25 @@ class Instance:
         bookkeeping runs off the numpy mirrors, and uploads go through pinned
         staging buffers (`chip_smoke.py` runs this under
         ``torch.cuda.set_sync_debug_mode("error")``).
+
+        Traced, the whole step is one port-only span named for the step
+        `StepGraphs.step` ran: ``decode.eager``, ``decode.capture`` or
+        ``decode.replay`` (an engine without graphs runs ``decode.eager``),
+        with ``done``, the second the device finished it.
         """
+        eng = self.engine
+        if not eng.tracer.enabled:
+            return self._decode_impl(token)
+        g = eng.step_graphs
+        eager, captures = (g.eager_steps, g.captures) if g is not None else (0, 0)
+        tb = _time.perf_counter()
+        logits = self._decode_impl(token)
+        self._device_span("decode.eager" if g is None or g.eager_steps != eager
+                          else "decode.capture" if g.captures != captures
+                          else "decode.replay", tb)
+        return logits
+
+    def _decode_impl(self, token: torch.Tensor) -> torch.Tensor:
         eng = self.engine
         params = eng.params_of(self.reg.model_id)
         self._step += 1
@@ -1836,6 +1892,15 @@ class Instance:
         self._tables = self._lengths = None
 
     def finish(self):
+        """Give the instance's pages and pool regions back.  Traced, the
+        engine's pending device-ended spans are resolved first: the one
+        wait tracing adds, where the caller has already waited for its
+        last token."""
+        eng = self.engine
+        traced = eng.tracer.enabled
+        if traced:
+            tb = _time.perf_counter()
+            eng.clock.resolve()
         if self.slab is not None:
             # pages go back to the shared slab BEFORE the pool offsets are
             # released (another instance may claim them immediately after)
@@ -1851,6 +1916,9 @@ class Instance:
             if not live:
                 del self.engine._live_instances[self.reg.model_id]
         self.engine.finish_instance(self.reg.model_id)
+        if traced:
+            eng.tracer.emit("instance.finish", tb, _time.perf_counter(), track=eng._track,
+                            cat="engine", args={"rid": self.rid, "model": self.reg.model_id})
 
 
 # ------------------------------------------------------------ prefill scatter

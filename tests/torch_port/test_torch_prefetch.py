@@ -9,8 +9,9 @@
   bound.
 - tests/test_fastpath.py's traced cold start on both engines: a cold load,
   a store-tier reload, a prefill and 3 fused decode steps give equal lists
-  of (name, track, args) spans (walls aside), each phase nested in its
-  load, and a loadable Chrome trace.
+  of (name, track, args) spans (walls aside, and the port's own spans,
+  `PORT_SPANS`, left out), each phase nested in its load, and a loadable
+  Chrome trace.
 """
 import dataclasses
 import json
@@ -33,6 +34,7 @@ from repro.serving import engine as ref_engine  # noqa: E402
 from repro_torch import obs as port_obs  # noqa: E402
 from repro_torch.configs import all_configs as port_configs  # noqa: E402
 from repro_torch.models import tensors as port_tensors  # noqa: E402
+from repro_torch.obs.device_clock import PORT_SPANS  # noqa: E402
 from repro_torch.serving import engine as port_engine  # noqa: E402
 
 from torch_port_helpers import paired_engines  # noqa: E402
@@ -180,9 +182,14 @@ def traced(tmp_path_factory):
 
 
 def test_traced_spans_equal_reference(traced):
+    """The port's spans without its own (`PORT_SPANS`) are the
+    reference's; every other name is the reference's."""
     events, _, _ = traced
-    spans = {k: [(e.name, e.track, e.args) for e in evs] for k, evs in events.items()}
+    spans = {k: [(e.name, e.track, e.args) for e in evs if e.name not in PORT_SPANS]
+             for k, evs in events.items()}
     assert spans["port"] == spans["ref"]
+    ref_names = {e.name for e in events["ref"]}
+    assert all(e.name in ref_names or e.name in PORT_SPANS for e in events["port"])
 
 
 def test_traced_phases_nest_in_their_loads(traced):
