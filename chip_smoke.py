@@ -16,10 +16,12 @@ run outside a checkout of the repository):
    boundaries, full tables, a long context, G of 1 to 16 (7 included),
    head dim 64 / 128; prefill: S of 1 to 512 around the 64-row tiles,
    sliding windows, non-causal, head dim 32 / 64 / 128 / 256, G of 1 / 4 /
-   7 / 8 / 16), with the kernel's, the plain version's and a PyTorch call's time
-   beside the bound, at the shapes of every model the script serves and
-   at one long shape each (`[timing]` lines: a 4000-token conversation at
-   batch 1, a 4096-token prompt);
+   7 / 8 / 16; the routed experts: routed and dropped pairs at qwen3-moe's,
+   mixtral's and smoke widths), with the kernel's, the plain version's and
+   a PyTorch call's time (for the routed experts, the slot path's expert
+   products) beside the bound, at the shapes of every model the script
+   serves and at one long shape each (`[timing]` lines: a 4000-token
+   conversation at batch 1, a 4096-token prompt);
 3. main path at full width on llama3.2-1b (random weights from a seed):
    `Engine.register_model`, a cold then a warm `Engine.load`, prefill of 4
    prompts of lengths 512/384/200/64, 1 + 32 decode steps under
@@ -485,6 +487,69 @@ def check_kernels() -> dict:
                 "replaces": "src/repro/kernels/flash_attention.py:102",
                 "shape": SHAPE_NOTES[label], **row}
     dispatch_cost(main_args)
+    rows.update(check_moe_experts())
+    return rows
+
+
+def check_moe_experts() -> dict:
+    """The routed experts against their plain version over routed and
+    dropped pairs, timed at qwen3-moe-30b-a3b's B 1 decode and
+    mixtral-8x7b's beside their bound (the routed weights once) and, as the
+    yardstick, the slot path's expert products at the same shape (three
+    bmm over every expert's `moe_capacity` slots and the SiLU.mul, what
+    the layer ran before the kernel).  Returns the timed rows."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import moe_experts_ref
+    from repro_torch.models import layers
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    rows = {}
+    # (label, dtype, T, k, E, D, F, dropped pairs a token); the timed rows
+    # are the decode steps of [families] and [state-families]
+    cases = [("qwen3-moe-30b-a3b", "bfloat16", 1, 8, 128, 2048, 768, 0),
+             ("", "bfloat16", 4, 8, 128, 2048, 768, 0),
+             ("", "bfloat16", 12, 8, 128, 2048, 768, 3),
+             ("mixtral-8x7b", "bfloat16", 1, 2, 8, 4096, 14336, 0),
+             ("", "bfloat16", 3, 2, 8, 128, 64, 1),
+             ("", "float32", 3, 2, 8, 128, 64, 1),
+             ("", "float32", 2, 8, 128, 2048, 768, 0)]
+    for label, dt, T, k, E, D, F, drop in cases:
+        dtype = getattr(torch, dt)
+        x = torch.randn((T, D), generator=gen, device=dev).to(dtype)
+        ids = torch.stack([torch.randperm(E, generator=gen, device=dev)[:k] for _ in range(T)])
+        w = torch.rand((T, k), generator=gen, device=dev)
+        w = w / w.sum(-1, keepdim=True)
+        keep = torch.ones((T, k), dtype=torch.bool, device=dev)
+        keep[:, k - drop:] = False
+        wg, wu = ((torch.randn((E, D, F), generator=gen, device=dev) * D ** -0.5).to(dtype)
+                  for _ in range(2))
+        wd = (torch.randn((E, F, D), generator=gen, device=dev) * F ** -0.5).to(dtype)
+        args = (x, ids, w, keep, wg, wu, wd)
+        out = ops.moe_experts(*args)
+        ref = moe_experts_ref(*args)
+        torch.cuda.synchronize()
+        err = _check("moe_experts", out, ref, dt, f"{dt} T{T} k{k} E{E} D{D} F{F}, "
+                     f"{drop} of each token's pairs dropped")
+        if not label:
+            continue
+        pairs = T * (k - drop)
+        cap = layers.moe_capacity(T, k, E, layers.DECODE_CAPACITY_FACTOR)
+        xe = torch.randn((E, cap, D), generator=gen, device=dev).to(dtype)
+        p = {"wg": wg, "wu": wu, "wd": wd}
+        row = _timing_row(
+            "moe_experts", f"{label} {dt} T{T} k{k} E{E} D{D} F{F}", dt,
+            lambda: ops.moe_experts(*args), lambda: moe_experts_ref(*args),
+            lambda: layers._experts(xe, p), f"slot path (bmm x3 over {E} experts x {cap} slots)",
+            pairs * 3 * D * F * x.element_size() + 2 * T * D * x.element_size(),
+            pairs * 6 * D * F, err)
+        rows[("moe_experts", label)] = {
+            "name": "moe_experts", "route": "cuda",
+            "source": "src/repro_torch/csrc/moe_experts.cu", "replaces": None,
+            "shape": SHAPE_NOTES[label], **row}
+        del wg, wu, wd, xe, p, args
     return rows
 
 
@@ -1095,14 +1160,19 @@ def kernel_launches(cfg, requests: int, gen: int) -> dict:
     tokens: K2 once per attention layer per prefill (the encoder's layers
     too), K1 once per layer per decode step on the paged path only (the
     non-paged fallback decodes with the plain dense attention, as the
-    reference does)."""
+    reference does), the routed experts once per MoE layer per decode step
+    on both paths."""
     from repro_torch.serving.engine import _is_paged_family
 
     flash = sum(k in ("attn", "swa") for k in cfg.pattern)
     if cfg.family == "audio":
         flash += cfg.encoder_layers
     paged = cfg.num_layers * gen if _is_paged_family(cfg) else 0
-    return {"paged_attention": paged * requests, "flash_attention": flash * requests}
+    # the routed experts: one call a MoE layer a decode step at B 1 (T * k < E)
+    routed = (cfg.num_layers * gen if cfg.is_moe and cfg.experts_per_token < cfg.num_experts
+              else 0)
+    return {"paged_attention": paged * requests, "flash_attention": flash * requests,
+            "moe_experts": routed * requests}
 
 
 @contextlib.contextmanager
@@ -1352,12 +1422,17 @@ def serverless_phase(cfgs: dict, weights: dict, device="cuda", *, tag="serverles
 
 
 def weight_floor(m, cfg) -> tuple[int, float]:
-    """Bytes a decode step must read and their time at the card's memory
-    rate (ms): every weight once (the dense einsum over (E, cap) reads every
-    expert of a MoE layer), the embedding table aside."""
+    """Bytes a B 1 decode step must read and their time at the card's memory
+    rate (ms): every weight once, of a MoE layer's experts the k its token
+    is routed to (the routed path reads no other), the embedding table
+    aside."""
     from repro_torch.models.tensors import spec_records
 
-    nbytes = sum(r.nbytes for r in spec_records(m, cfg) if not r.name.endswith("/embed"))
+    routed = cfg.is_moe and cfg.experts_per_token < cfg.num_experts
+    experts = ("/mlp/wg", "/mlp/wu", "/mlp/wd")
+    nbytes = sum(r.nbytes * cfg.experts_per_token // cfg.num_experts
+                 if routed and r.name.endswith(experts) else r.nbytes
+                 for r in spec_records(m, cfg) if not r.name.endswith("/embed"))
     return nbytes, nbytes / HBM_BYTES_PER_S * 1e3
 
 
@@ -1540,7 +1615,7 @@ def trace_phase(cfg, weights, device="cuda") -> dict:
     log(f"[trace] wrote {path}: {len(spans)} spans {json.dumps(families)}")
     if dev.type == "cuda":
         want = {"paged_attention": cfg.num_layers * TRACE_STEPS,
-                "flash_attention": cfg.num_layers}
+                "flash_attention": cfg.num_layers, "moe_experts": 0}
         assert counts == want, (counts, want)
     return counts
 
@@ -1706,7 +1781,7 @@ def graphs_phase(cfg, weights, device="cuda") -> dict:
     assert graphed["launches"] == eager["launches"], (graphed["launches"], eager["launches"])
     if cuda:
         assert eager["launches"] == {"paged_attention": L * dispatches,
-                                     "flash_attention": 2 * L}, eager["launches"]
+                                     "flash_attention": 2 * L, "moe_experts": 0}, eager["launches"]
     bitwise, worst, flips = 0, 0.0, 0
     for i, (e, gr) in enumerate(zip(eager["logits"], graphed["logits"])):
         assert e.shape == gr.shape and bool(torch.isfinite(gr.float()).all()), i
@@ -2989,7 +3064,7 @@ def train_phase(device="cuda", smoke=False):
     log(f"[train] launcher contract {time.perf_counter() - t0:.1f} s; {host_memory()}")
     counts = ops.launch_counts()
     log(f"[train] (e) kernel launches over the phase: {counts}")
-    assert counts == {"paged_attention": 0, "flash_attention": 0}, counts
+    assert counts == {"paged_attention": 0, "flash_attention": 0, "moe_experts": 0}, counts
     if torch.device(device).type == "cuda":
         release_memory()
 

@@ -9,11 +9,14 @@ from __future__ import annotations
 from typing import Any, Callable
 
 from repro_torch.kernels.flash_attention import flash_attention  # noqa: F401
+from repro_torch.kernels.moe_experts import moe_experts  # noqa: F401
 from repro_torch.kernels.paged_attention import paged_attention  # noqa: F401
-from repro_torch.kernels.ref import flash_attention_ref, paged_attention_ref  # noqa: F401
+from repro_torch.kernels.ref import (flash_attention_ref, moe_experts_ref,  # noqa: F401
+                                     paged_attention_ref)
 
 # every kernel wrapper of the port (each carries a `.launches` counter)
-KERNELS = {"paged_attention": paged_attention, "flash_attention": flash_attention}
+KERNELS = {"paged_attention": paged_attention, "flash_attention": flash_attention,
+           "moe_experts": moe_experts}
 
 
 def reset_launch_counts():

@@ -1,15 +1,19 @@
-"""Plain PyTorch versions of the two kernels (port of `repro/kernels/ref.py`).
+"""Plain PyTorch versions of the kernels (port of `repro/kernels/ref.py`,
+and `moe_experts_ref`, which has no reference kernel).
 
-`paged_attention_ref` / `flash_attention_ref` define what the CUDA kernels
-compute, run for CPU tensors, and are what the kernels are held against on
-the card.  Same casts as the reference oracles: scores in fp32,
-probabilities cast to q.dtype before the V product.
+`paged_attention_ref` / `flash_attention_ref` / `moe_experts_ref` define
+what the CUDA kernels compute, run for CPU tensors, and are what the
+kernels are held against on the card.  Same casts as the reference
+oracles: scores in fp32, probabilities cast to q.dtype before the V
+product; the experts round where the slot dispatch
+(`models.layers.moe_forward`) rounds.
 """
 from __future__ import annotations
 
 import math
 
 import torch
+import torch.nn.functional as F
 
 F32 = torch.float32
 
@@ -71,3 +75,23 @@ def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0):
     o = torch.einsum("bkgst,btkh->bskgh", p.to(q.dtype), v)
     return o.reshape(B, S, H, hd)
 
+
+def moe_experts_ref(x, ids, w, keep, wg, wu, wd):
+    """SwiGLU of each token's routed experts, weighted and summed.
+
+    x:      (T, D)         tokens
+    ids:    (T, k) int64   expert of each (token, choice) pair
+    w:      (T, k) fp32    the pair's routing weight
+    keep:   (T, k) bool    whether the pair kept a slot
+    wg, wu: (E, D, F)      gate and up projections of every expert
+    wd:     (E, F, D)      down projections
+    Returns (T, D): the slot dispatch's products and casts (each product in
+    x.dtype, the weight cast to it, the k pairs summed) over the pairs alone.
+    """
+    T, k = ids.shape
+    e = ids.reshape(-1)
+    xr = x[:, None, :].expand(T, k, x.shape[1]).reshape(T * k, 1, -1)
+    h = F.silu(torch.bmm(xr, wg[e])) * torch.bmm(xr, wu[e])
+    y = torch.bmm(h, wd[e])[:, 0]  # (T * k, D)
+    y = y * (w.reshape(-1, 1) * keep.reshape(-1, 1)).to(y.dtype)
+    return y.reshape(T, k, -1).sum(dim=1)

@@ -297,31 +297,63 @@ def _experts(xe: torch.Tensor, p) -> torch.Tensor:
 
 def moe_forward(p, x, cfg: ModelConfig, capacity_factor: float, first_expert: int = 0):
     """Top-k expert dispatch with per-expert capacity (the reference's scatter
-    dispatch).
+    dispatch): the routed path where the slots would hold fewer pairs than
+    there are experts, else the slot path (`_moe_slots`).
 
-    Each (token, choice) pair takes the next slot of its expert in flattened
-    (T*k) order; pairs past an expert's capacity are dropped (their slot is
-    `cap`, one spare row per expert that is written, never read back, and
-    sliced off before the expert products).  Sync-free on CUDA: the
-    capacity is a host integer, the one-hot is a comparison, and dispatch
-    and combine are one `index_copy_` / `index_select` over linear slot ids.
+    Both route (`route`) and place each (token, choice) pair in its
+    expert's slots (`_slots`) alike, so the same pairs are kept or dropped,
+    and compute the same function: the slot path's empty slots only
+    multiply zeros.  The routed path (`kernels.ops.moe_experts`) computes
+    the SwiGLU of the kept pairs alone and reads only their experts'
+    weights; it is taken when T * k < E (a decode step: the slot path would
+    read experts that no pair uses), x is not a DTensor, `p` holds every
+    expert, and autograd records nothing.
 
     `p`'s expert weights may hold experts [first_expert, first_expert + El)
     of the E (one rank's experts, `sharded.moe_forward`): pairs routed to
     the others are dropped, so the output is this slice's share of the sum.
     """
     if isinstance(x, DTensor):
-        return sharded.moe_forward(moe_forward, p, x, cfg, capacity_factor)
+        return sharded.moe_forward(_moe_slots, p, x, cfg, capacity_factor)
+    B, S, D = x.shape
+    E, k = cfg.num_experts, cfg.experts_per_token
+    if not (B * S * k < E and p["wg"].shape[0] == E
+            and not (torch.is_grad_enabled() and _requires_grad((x, p)))):
+        return _moe_slots(p, x, cfg, capacity_factor, first_expert)
+    xf, w, idx, _, keep, _ = _dispatch(p, x, cfg, capacity_factor)
+    return kops.moe_experts(xf, idx, w, keep, p["wg"], p["wu"], p["wd"]).reshape(B, S, D)
+
+
+def _dispatch(p, x, cfg: ModelConfig, capacity_factor: float):
+    """The tokens of x (B, S, D) flattened to (T, D), routed, and each
+    (token, choice) pair placed in its expert's slots in flattened (T*k)
+    order: (xf, w, idx, slot, keep, cap)."""
+    B, S, D = x.shape
+    E, k = cfg.num_experts, cfg.experts_per_token
+    T = B * S
+    xf = x.reshape(T, D)
+    w, idx = route(xf, p["router"], k)  # (T, k)
+    cap = moe_capacity(T, k, E, capacity_factor)
+    slot, keep = _slots(idx.reshape(-1), E, cap, dim=0)
+    return xf, w, idx, slot, keep, cap
+
+
+def _moe_slots(p, x, cfg: ModelConfig, capacity_factor: float, first_expert: int = 0):
+    """The slot path of `moe_forward`: each (token, choice) pair takes the
+    next slot of its expert in flattened (T*k) order; pairs past an
+    expert's capacity are dropped (their slot is `cap`, one spare row per
+    expert that is written, never read back, and sliced off before the
+    expert products), and every expert's SwiGLU runs over its slots.
+    Sync-free on CUDA: the capacity is a host integer, the one-hot is a
+    comparison, and dispatch and combine are one `index_copy_` /
+    `index_select` over linear slot ids.  `first_expert` as in
+    `moe_forward`."""
     B, S, D = x.shape
     E, k = cfg.num_experts, cfg.experts_per_token
     El = p["wg"].shape[0]
     T = B * S
-    xf = x.reshape(T, D)
-    w, idx = route(xf, p["router"], k)  # (T, k)
-
-    cap = moe_capacity(T, k, E, capacity_factor)
+    xf, w, idx, slot, keep, cap = _dispatch(p, x, cfg, capacity_factor)
     flat_e = idx.reshape(-1)  # (T*k,)
-    slot, keep = _slots(flat_e, E, cap, dim=0)
     if El < E:  # this rank's experts only: the others' pairs take a spare row
         mine = (flat_e >= first_expert) & (flat_e < first_expert + El)
         keep, slot = keep & mine, torch.where(mine, slot, cap)

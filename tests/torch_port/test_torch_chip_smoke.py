@@ -5,6 +5,7 @@ on the CPU at a reduced size through the same code."""
 import dataclasses
 import functools
 import importlib.util
+import inspect
 import os
 import shutil
 import subprocess
@@ -58,7 +59,8 @@ def test_main_path_rehearses_on_cpu(monkeypatch):
     cfg = dataclasses.replace(get_config("llama3.2-1b"), name="tiny-llama",
                               num_layers=2, d_model=128, d_ff=256, vocab_size=512)
     counts = cs.main_path(cfg, "cpu")
-    assert counts == {"paged_attention": 0, "flash_attention": 0}  # CPU: plain versions
+    assert counts == {"paged_attention": 0, "flash_attention": 0,  # CPU: plain versions
+                      "moe_experts": 0}
 
 
 TINY = dict(num_layers=2, d_model=128, d_ff=256, vocab_size=512, num_heads=4,
@@ -108,7 +110,7 @@ def test_serverless_phase_rehearses_on_cpu(monkeypatch):
     trace = poisson_trace(models=[SimModel(m, 1e6, 1) for m in cfgs], **cs.SERVERLESS_TRACE)
     n = Counter(r.model_id for r in trace)
     assert per_model == {m: {"paged_attention": c.num_layers * 4 * n[m],
-                             "flash_attention": c.num_layers * n[m]}
+                             "flash_attention": c.num_layers * n[m], "moe_experts": 0}
                          for m, c in cfgs.items()}
 
 
@@ -183,8 +185,10 @@ def test_families_phase_rehearses_on_cpu(monkeypatch):
     per_model = cs.families_phase(cfgs, weights, "cpu")
     trace = poisson_trace(models=[SimModel(m, 1e6, 1) for m in cfgs], **cs.FAMILY_TRACE)
     n = Counter(r.model_id for r in trace)
+    # the MoE model's B 1 decode steps take the routed experts (k 4 < 16 experts)
     assert per_model == {m: {"paged_attention": c.num_layers * 4 * n[m],
-                             "flash_attention": c.num_layers * n[m]}
+                             "flash_attention": c.num_layers * n[m],
+                             "moe_experts": c.num_layers * 4 * n[m] * c.is_moe}
                          for m, c in cfgs.items()}
 
 
@@ -282,11 +286,17 @@ def rehearse_state_families(monkeypatch):
     n = Counter(r.model_id for r in trace)
     attn = {"mixtral-8x7b": 6, "recurrentgemma-9b": 2, "mamba2-2.7b": 0, "whisper-tiny": 4}
     assert set(n) == set(cfgs)
-    assert per_model == {**{m: {"paged_attention": 0, "flash_attention": attn[m] * n[m]}
+    # mixtral's B 1 decode steps take the routed experts (k 2 < 8 experts): 4
+    # a request, and the long probe's own count
+    moe = {m: cfgs[m].num_layers if cfgs[m].is_moe else 0 for m in cfgs}
+    probe = inspect.signature(cs.long_prompt_probe).parameters["steps"].default
+    assert per_model == {**{m: {"paged_attention": 0, "flash_attention": attn[m] * n[m],
+                                "moe_experts": moe[m] * 4 * n[m]}
                             for m in cfgs},
                          "recurrentgemma-9b long": {"paged_attention": 0,
-                                                    "flash_attention": 2},
-                         "mixtral-8x7b long": {"paged_attention": 0, "flash_attention": 6}}
+                                                    "flash_attention": 2, "moe_experts": 0},
+                         "mixtral-8x7b long": {"paged_attention": 0, "flash_attention": 6,
+                                               "moe_experts": moe["mixtral-8x7b"] * probe}}
 
 
 def test_train_phase_rehearses_on_cpu(monkeypatch, tmp_path, capsys):
@@ -306,7 +316,7 @@ def test_train_phase_rehearses_on_cpu(monkeypatch, tmp_path, capsys):
                  "(d) remat on vs off", "34 of 34 leaves bitwise equal",
                  "scatter vs gshard", "grouped vs gshard", "resumed from step 6",
                  "(e) kernel launches over the phase: {'paged_attention': 0, "
-                 "'flash_attention': 0}"):
+                 "'flash_attention': 0, 'moe_experts': 0}"):
         assert line in out, line
     assert not (tmp_path / "build" / "train_ckpt").exists()
 
@@ -322,7 +332,8 @@ def test_trace_phase_rehearses_on_cpu(monkeypatch, tmp_path):
     monkeypatch.setattr(cs, "TRACE_DIR", tmp_path / "trace")
     cfgs, weights = tiny_models(cs)
     counts = cs.trace_phase(cfgs["llama3.2-1b"], weights["llama3.2-1b"], "cpu")
-    assert counts == {"paged_attention": 0, "flash_attention": 0}  # CPU: plain versions
+    assert counts == {"paged_attention": 0, "flash_attention": 0,  # CPU: plain versions
+                      "moe_experts": 0}
     doc = json.loads((tmp_path / "trace" / "llama3.2-1b.json").read_text())
     assert sum(e["ph"] == "X" for e in doc["traceEvents"]) > 10
 
@@ -345,7 +356,7 @@ def test_graphs_phase_rehearses_on_cpu(monkeypatch, capture):
     out = cs.graphs_phase(cfgs["llama3.2-1b"], weights["llama3.2-1b"], "cpu")
     L = cfgs["llama3.2-1b"].num_layers
     assert out["eager"]["launches"] == out["graphed"]["launches"] == {
-        "paged_attention": L * 2 * 8, "flash_attention": L * 2}
+        "paged_attention": L * 2 * 8, "flash_attention": L * 2, "moe_experts": 0}
 
 
 def test_examples_phase_rehearses_on_cpu(monkeypatch, tmp_path):
@@ -383,7 +394,7 @@ def test_dense_phase_rehearses_on_cpu(monkeypatch):
     trace = poisson_trace(models=[SimModel(m, 1e6, 1) for m in cfgs], **cs.SERVERLESS_TRACE)
     n = Counter(r.model_id for r in trace)
     assert per_model == {m: {"paged_attention": c.num_layers * 4 * n[m],
-                             "flash_attention": c.num_layers * n[m]}
+                             "flash_attention": c.num_layers * n[m], "moe_experts": 0}
                          for m, c in cfgs.items()}
 
 
@@ -412,5 +423,6 @@ def test_distributed_phase_rehearses_on_cpu():
                  "bitwise equal True", "prefill step:", "serve step 1", "compressed_grad_fn",
                  "elastic checkpoint of",
                  "dryrun llama3.2-1b|decode_32k|single: bottleneck",
-                 "kernel launches over the phase: {'paged_attention': 0, 'flash_attention': 0}"):
+                 "kernel launches over the phase: {'paged_attention': 0, 'flash_attention': 0, "
+                 "'moe_experts': 0}"):
         assert line in out.stdout, line

@@ -159,7 +159,14 @@ def test_cpu_tensors_run_the_plain_version_and_launch_nothing():
     assert torch.equal(ops.paged_attention(*tx), paged_attention_ref(*tx))
     _, fx = flash_inputs(4, 1, 64, 4, 2, 64, jnp.float32)
     assert torch.equal(ops.flash_attention(*fx), flash_attention_ref(*fx))
-    assert ops.launch_counts() == {"paged_attention": 0, "flash_attention": 0}
+    g = torch.Generator().manual_seed(5)
+    mx = (torch.randn((3, 64), generator=g), torch.tensor([[0, 5], [2, 1], [7, 3]]),
+          torch.rand((3, 2), generator=g), torch.tensor([[True, False], [True, True],
+                                                         [False, True]]),
+          *(torch.randn(s, generator=g) for s in ((8, 64, 32), (8, 64, 32), (8, 32, 64))))
+    assert torch.equal(ops.moe_experts(*mx), ops.moe_experts_ref(*mx))
+    assert ops.launch_counts() == {"paged_attention": 0, "flash_attention": 0,
+                                  "moe_experts": 0}
 
 
 def test_wrapper_input_checks_reject_what_the_kernel_cannot_take():

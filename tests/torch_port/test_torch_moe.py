@@ -140,6 +140,95 @@ def test_moe_forward_matches_reference(dtype, cf):
     assert close_to(out, ref, dtype), max_err(out, ref)
 
 
+# The routed path against the slot path and the reference: (case, dtype).
+# T tokens of the smoke config (E 8, k 2) just below, at and above T * k =
+# E; 12 identical tokens at E 128, k 8 (capacity 8 at decode: 4 of each
+# routed expert's 12 pairs dropped); then inputs the rule keeps on the slot
+# path although T * k < E: a DTensor, a slice of the experts, and an input
+# that autograd records.
+ROUTED_CASES = [(case, dt) for case in ("below", "at", "above", "drops")
+                for dt in ("float32", "bfloat16")] + [
+                   ("dtensor", "float32"), ("slice", "float32"), ("grad", "float32")]
+
+DTENSOR_SNIPPET = """
+import dataclasses, tempfile, torch, torch.distributed as dist
+from torch.distributed.device_mesh import init_device_mesh
+from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+from repro_torch.configs import get_config
+from repro_torch.kernels import ops
+from repro_torch.models import layers
+dist.init_process_group("gloo", init_method="file://" + tempfile.mktemp(), rank=0, world_size=1)
+try:
+    cfg = dataclasses.replace(get_config("qwen3-moe-30b-a3b").smoke(), dtype="float32")
+    p = layers.init_moe(torch.Generator().manual_seed(0), cfg, "cpu")
+    x = torch.randn((1, 3, cfg.d_model), generator=torch.Generator().manual_seed(1))
+    calls, real = [], ops.moe_experts
+    ops.moe_experts = lambda *a: calls.append(1) or real(*a)
+    mesh = init_device_mesh("cpu", (1,), mesh_dim_names=("model",))
+    dp = {n: distribute_tensor(t, mesh, [Replicate() if n == "router" else Shard(0)])
+          for n, t in p.items()}
+    y = layers.moe_forward(dp, distribute_tensor(x, mesh, [Replicate()]), cfg, 4.0).full_tensor()
+    print(len(calls), torch.equal(y, layers._moe_slots(p, x, cfg, 4.0)))
+finally:
+    dist.destroy_process_group()
+"""
+
+
+@pytest.mark.parametrize("case, dtype", ROUTED_CASES, ids=[f"{c}-{d}" for c, d in ROUTED_CASES])
+def test_routed_path_matches_slot_path_and_reference(case, dtype, monkeypatch):
+    """`moe_forward` takes the routed experts (`kernels.ops.moe_experts`, its
+    plain version on the CPU) exactly where T * k < E, x is no DTensor, the
+    weights hold every expert and autograd records nothing; either way it
+    equals the slot path and the reference's `moe_forward` (decode capacity
+    factor 4.0), dropped pairs included."""
+    if case == "dtensor":  # a process group lives in a subprocess of its own
+        from dist_helpers import run_snippet
+
+        out = run_snippet(DTENSOR_SNIPPET)
+        assert out.returncode == 0, out.stderr[-4000:]
+        assert out.stdout.split() == ["0", "True"], out.stdout
+        return
+    from repro_torch.kernels import ops
+
+    wide = dict(num_experts=128, experts_per_token=8) if case == "drops" else {}
+    rc, pc = pair(dtype, **wide)
+    p = ref_layers.init_moe(jax.random.PRNGKey(7), rc)
+    pp = {k: to_torch(v) for k, v in p.items()}
+    T = {"below": 3, "at": 4, "above": 5}.get(case, 12)
+    rows = 1 if case == "drops" else T  # drops: 12 copies of one token
+    x = np.random.default_rng(8).standard_normal((1, rows, rc.d_model)).astype(np.float32)
+    x = jnp.asarray(np.repeat(x, T // rows, axis=1)).astype(rc.jnp_dtype)
+    ids, ties = routing(np.asarray(x.astype(jnp.float32)), p["router"], rc)
+    assert not ties
+    E, k, cf = rc.num_experts, rc.experts_per_token, port_layers.DECODE_CAPACITY_FACTOR
+    cap = port_layers.moe_capacity(T, k, E, cf)
+    dropped = sum(max(0, int((ids == e).sum()) - cap) for e in range(E))
+    assert dropped == (4 * k if case == "drops" else 0), (cap, dropped)
+
+    calls = []
+    monkeypatch.setattr(ops, "moe_experts",
+                        lambda *a, _f=ops.moe_experts: calls.append(1) or _f(*a))
+    xt, first = to_torch(x), 0
+    if case == "slice":  # experts [2, 6) of 8, as one rank of expert parallelism holds them
+        first = 2
+        pp = {n: t if n == "router" else t[first:first + 4] for n, t in pp.items()}
+    if case == "grad":
+        xt.requires_grad_(True)
+    out = port_layers.moe_forward(pp, xt, pc, cf, first_expert=first)
+    routed = case in ("below", "drops")
+    assert calls == [1] * routed, (case, calls)
+    with torch.no_grad():
+        slots = port_layers._moe_slots(pp, xt, pc, cf, first)
+    assert out.dtype == pc.torch_dtype and out.shape == slots.shape
+    if not routed:
+        assert torch.equal(out.detach(), slots)
+    assert close_to(out.detach(), slots, dtype), max_err(out.detach(), slots)
+    if case in ("slice", "grad"):
+        return
+    ref = jax.jit(lambda p, x: ref_layers.moe_forward(p, x, rc, cf))(p, x)
+    assert close_to(out, ref, dtype), max_err(out, ref)
+
+
 @pytest.mark.parametrize("step", ["prefill", "decode"])
 def test_moe_capacity_factors_follow_the_reference(step, monkeypatch):
     """Prefill routes with capacity factor 1.25 and every decode step (ring

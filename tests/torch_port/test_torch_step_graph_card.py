@@ -160,8 +160,11 @@ def test_graphed_logits_equal_eager(runs):
 
 def test_launch_counts_equal_eager(runs):
     cfg, out = runs
+    # the MoE layers take the routed experts at B 2 (T * k = 4 < 8 experts),
+    # the slot path in the fused B 4 steps (8 = 8)
     want = {"paged_attention": cfg.num_layers * (STEPS + FUSED),
-            "flash_attention": cfg.num_layers * 2}
+            "flash_attention": cfg.num_layers * 2,
+            "moe_experts": cfg.num_layers * STEPS if cfg.is_moe else 0}
     assert out["eager"]["launches"] == out["graphed"]["launches"] == want
 
 
