@@ -130,7 +130,8 @@ def run(root: Path, workload: str, seed: int, seconds: float, trace: bool, *,
     across runs of one process (the sweep's, at one seed)."""
     bench = spec(root)
     cell = find(bench["workloads"], workload)
-    conf = load_json(HERE / "configs" / f"{cell['config']}.json")
+    conf = load_json(root / find(bench["configs"], cell["config"])["file"])
+    refs = check.references(conf)  # before anything is built or drawn
     tf = {**load_json(HERE / "traffic" / f"{workload}.json"), **(traffic or {})}
     dev = torch.device(device)
     cfgs = model_configs(conf, shrink=shrink)
@@ -150,8 +151,7 @@ def run(root: Path, workload: str, seed: int, seconds: float, trace: bool, *,
     for i, (mid, cfg) in enumerate(cfgs.items()):
         key = (mid, seed, shrink is None)
         if key not in cache:
-            cache[key] = draw(cfg, tr.mix(seed, 0, i), dev,
-                              qk_gain=conf.get("draw", {}).get("qk_gain", 1.0))
+            cache[key] = draw(cfg, tr.mix(seed, 0, i), dev, conf.get("draw"))
         trees[mid], weights[mid] = cache[key]
     log(f"port_bench: weights drawn and page-locked at {time.perf_counter() - t_start:.1f} s")
     tracer = None
@@ -218,7 +218,7 @@ def run(root: Path, workload: str, seed: int, seconds: float, trace: bool, *,
         torch.cuda.empty_cache()
 
     picked = check.sample(ctx.served, tf["check_requests"], seed)
-    found = check.gaps(weights, ctx.cfgs, picked, dev, control=control)
+    found = check.gaps(weights, ctx.cfgs, picked, dev, refs, control=control)
     log(f"port_bench: reference checked at {time.perf_counter() - t_start:.1f} s")
     limits = tf["limits"]
     checks = {name: {"value": found[name], "limit": limit}

@@ -3,10 +3,12 @@
 
 Once the window has closed and the program's state is freed, a sample of
 the window's finished requests, drawn from the run's seed, is run through
-the plain float32 reference (`reference/lm.py`), over each request's prompt
-and the tokens it served.  At every served position the reference gives
-its best logit; each token's gap is how far the served token's reference
-logit lies below that best (in logits).  The numbers a cell may compare, as
+the plain float32 reference of the request's model (the module its
+configuration entry names, `reference/lm.py` by default;
+`reference/__init__.py` states the contract), over each request's prompt
+and the tokens it served.  At every served position the reference gives its
+best logit; each token's gap is how far the served token's reference logit
+lies below that best (in logits).  The numbers a cell may compare, as
 its traffic file's `limits` name them: the widest gap over every sampled
 token (`max_logit_gap`), their mean (`mean_logit_gap`), and the share of
 served tokens with a gap at all (`logit_miss_share`).  A greedy server in a precision close enough
@@ -32,6 +34,7 @@ from collections import defaultdict
 
 import torch
 
+import reference
 from pbench.traffic import mix
 
 
@@ -68,14 +71,28 @@ def _readings(gap: torch.Tensor, prefix: str) -> dict:
             f"{prefix}miss_share": float((gap > 0).float().mean())}
 
 
-def gaps(weights: dict, cfgs: dict, picked: list, device, *, control: bool = False) -> dict:
-    """The reference's readings over the picked requests: of the served
-    tokens' gaps (`max_logit_gap`, `mean_logit_gap`, and `logit_miss_share`,
-    the share of served tokens that are not the reference's best), and with
-    `control` the same of the float8 reference's first tokens
-    (`max_control_gap`, ...); also the tokens compared."""
-    from reference import lm as ref
+def references(conf: dict) -> dict:
+    """model id -> the reference module its entry in configuration `conf`
+    names, loaded; a missing one stops the run, naming the model."""
+    out = {}
+    for m in conf["models"]:
+        module = reference.module_of(m)
+        try:
+            out[m["id"]] = reference.load(module)
+        except ModuleNotFoundError as e:
+            raise SystemExit(f"model {m['id']!r} of configuration {conf['name']!r} names the "
+                             f"reference {module!r}: {e}") from e
+    return out
 
+
+def gaps(weights: dict, cfgs: dict, picked: list, device, refs: dict, *,
+         control: bool = False) -> dict:
+    """The reference's readings over the picked requests, each model's
+    through its module in `refs` (`references`): of the served tokens' gaps
+    (`max_logit_gap`, `mean_logit_gap`, and `logit_miss_share`, the share of
+    served tokens that are not the reference's best), and with `control`
+    the same of the float8 reference's first tokens (`max_control_gap`,
+    ...); also the tokens compared."""
     precisions = ("fp32", "fp8") if control else ("fp32",)
     served_gaps, control_gaps = [], []
     by_model = defaultdict(list)
@@ -89,8 +106,8 @@ def gaps(weights: dict, cfgs: dict, picked: list, device, *, control: bool = Fal
             S = len(prompt)
             seqs.append((prompt + toks[:-1], S, list(range(S - 1, S - 1 + len(toks)))))
             served.append(toks)
-        logits = ref.forward(weights[model_id], cfgs[model_id], seqs, device=device,
-                             precisions=precisions)
+        logits = refs[model_id].forward(weights[model_id], cfgs[model_id], seqs, device=device,
+                                        precisions=precisions)
         for i, toks in enumerate(served):
             lg = logits["fp32"][i]
             best = lg.max(-1).values

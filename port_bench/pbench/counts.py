@@ -107,3 +107,18 @@ def k2_bound(cfg: Mapping, S: int) -> float:
     D, H, K, hd = _dims(cfg)
     nbytes = (2 * H + 2 * K) * S * hd * BF16
     return bound(nbytes, 4 * H * hd * visible_pairs(S))[0]
+
+
+def moe_layers(cfg: Mapping) -> int:
+    """Layers whose MLP is routed experts: every layer of a model with
+    experts (the program has no field for leading dense layers)."""
+    return cfg["num_layers"] if cfg.get("num_experts") else 0
+
+
+def moe_experts_bytes(cfg: Mapping) -> int:
+    """One MoE layer's routed experts at B 1: the `experts_per_token` experts'
+    gate, up and down projections read, the token read and its output
+    written, the pairs' expert ids (int64), routing weights (fp32) and kept
+    flags read."""
+    D, k = cfg["d_model"], cfg["experts_per_token"]
+    return k * 3 * D * cfg["moe_d_ff"] * BF16 + 2 * D * BF16 + k * (8 + 4 + 1)

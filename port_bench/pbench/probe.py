@@ -12,7 +12,7 @@
     steps from a second one (first a round that makes the key's eager step
     and capture, then a round of replays timed between CUDA events), and
     last one profiled session of a prefill (K2's device time) and a round
-    of replays (K1's device time).
+    of replays (K1's device time, and the routed experts' kernels').
 
 The profiler's clock and the tracer's are tied by one annotated range
 opened at a known `time.perf_counter`.
@@ -26,6 +26,7 @@ import torch
 
 K1_KERNEL = "paged_attention_kernel"
 K2_KERNEL = "flash_bf16_kernel"
+MOE_KERNELS = ("moe_gate_up_kernel", "moe_down_kernel")
 TOP = 10
 
 
@@ -74,8 +75,16 @@ class Profiled:
         self.shift = (anchor_ns - self.anchor) if anchor_ns is not None else None
         return False
 
-    def kernel_seconds(self, needle: str) -> float:
-        return sum(e - s for n, s, e in self.events if needle in n) / 1e9
+    def kernel_seconds(self, needle: str, since_ns: int | None = None) -> float:
+        """Device seconds of the kernels named like `needle`; with
+        `since_ns` (a `time.perf_counter_ns`) only of those that started
+        after it, none where the profiler's clock is not tied to it."""
+        if since_ns is not None:
+            if self.shift is None:
+                return 0.0
+            since_ns += self.shift
+        return sum(e - s for n, s, e in self.events
+                   if needle in n and (since_ns is None or s >= since_ns)) / 1e9
 
 
 def _union(intervals):
@@ -104,6 +113,9 @@ def read_slice(p: Profiled, spans) -> DeviceTrace:
     gaps = [(merged[i][1], merged[i + 1][0]) for i in range(len(merged) - 1)]
     if merged:
         gaps = [(lo, merged[0][0])] + gaps + [(merged[-1][1], hi)]
+    # only spans open during the slice can hold a gap's middle: the window's
+    # tens of thousands of spans would cost seconds for every thousand gaps
+    spans = [sp for sp in spans if sp[2] >= p.t0 - 1e-6 and sp[1] <= p.t1 + 1e-6]
     named = {}
     for s, e in gaps:
         if e <= s:
@@ -135,6 +147,7 @@ class StepReading:
     k1_step_s: float  # K1's device time a profiled step
     mean_length: float  # keys a timed step attends to, on average
     steps: int
+    experts_step_s: float = 0.0  # the routed experts' kernels' device time a profiled step
 
 
 def _timed(fn) -> float:
@@ -185,12 +198,17 @@ def step_probe(engine, model_id: str, prompt: torch.Tensor, steps: int) -> StepR
     with Profiled() as p:
         inst = start()
         state["tok"] = greedy(inst.prefill(batch))
+        torch.cuda.synchronize()
+        steps_ns = time.perf_counter_ns()
         run_steps()
         torch.cuda.synchronize()
         inst.finish()
     k2 = p.kernel_seconds(K2_KERNEL)
     k1 = p.kernel_seconds(K1_KERNEL) / steps
+    # the replays' alone, whichever path the prefill's experts take
+    experts = sum(p.kernel_seconds(n, steps_ns) for n in MOE_KERNELS) / steps
     # the timed steps attend to S + steps + 1 ... S + 2 steps keys, the
     # profiled ones to S + 1 ... S + steps
-    return StepReading(model_id, S, prefill_s, k2, step_s, k1, S + steps + (steps + 1) / 2, steps)
+    return StepReading(model_id, S, prefill_s, k2, step_s, k1, S + steps + (steps + 1) / 2, steps,
+                       experts)
 

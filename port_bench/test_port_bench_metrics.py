@@ -11,7 +11,7 @@ from repro_torch.serverless.gateway import TTFTRecord
 from repro_torch.serving.engine import DataLoadStats
 
 from pbench import cell, counts, stats, traffic
-from pbench.probe import DeviceTrace, StepReading, _union, read_slice
+from pbench.probe import DeviceTrace, Profiled, StepReading, _union, read_slice
 from pbench.serve import Served, Window
 
 HERE = Path(__file__).resolve().parent
@@ -82,7 +82,7 @@ def test_readers_with_nothing_to_read(ctx):
     assert read("metrics", "load.h2d_gbps", ctx) is None
     assert read("metrics", "graphs.replay_share", ctx) is None
     for name in ("prefill.mfu", "decode.mfu", "decode.hbm_share", "k1_roofline",
-                 "k2_roofline", "device.idle_share"):
+                 "k2_roofline", "moe_experts_roofline", "device.idle_share"):
         assert read("metrics", name, ctx) is None, name
     ctx.window.served = []
     assert read("end_to_end", "ttft_p90_s", ctx) is None
@@ -105,6 +105,27 @@ def test_device_readers(ctx):
     assert read("metrics", "k2_roofline", ctx) == pytest.approx(
         100 * 30 * counts.k2_bound(cfg, 256) / 3e-4)
     assert read("metrics", "device.idle_share", ctx) == pytest.approx(25.0)
+
+
+def test_moe_experts_roofline(ctx):
+    """The routed experts' least time over their kernels' time in the
+    replays, of the models that ran them; a dense model is left out, and
+    with no model that ran them the metric is silent."""
+    moe = PORT["qwen3-moe-30b-a3b"]
+    per_layer = 8 * 3 * 2048 * 768 * 2 + 2 * 2048 * 2 + 8 * 13
+    assert counts.moe_experts_bytes(moe) == per_layer
+    assert counts.moe_layers(moe) == 12 and counts.moe_layers(PORT["deepseek-7b"]) == 0
+    step = dict(prefill_s=0.03, k2_s=3e-4, decode_step_s=2.6e-3, k1_step_s=1e-4,
+                mean_length=536.5, steps=16)
+    ctx.steps = [StepReading("deepseek-7b", 512, **step),
+                 StepReading("qwen3-moe-30b-a3b", 512, **step, experts_step_s=4.8e-4)]
+    assert read("metrics", "moe_experts_roofline", ctx) == pytest.approx(
+        100 * 12 * per_layer / 3.35e12 / 4.8e-4)
+    ctx.steps = [StepReading("qwen3-moe-30b-a3b", 15, **step, experts_step_s=4.8e-4)]
+    assert read("metrics", "moe_experts_roofline", ctx) == pytest.approx(
+        100 * 12 * per_layer / 3.35e12 / 4.8e-4)  # whatever path the prefill took
+    ctx.steps = [StepReading("qwen3-moe-30b-a3b", 512, **step)]
+    assert read("metrics", "moe_experts_roofline", ctx) is None  # off the path
 
 
 def test_counts_by_hand():
@@ -149,6 +170,22 @@ def test_union_and_slice_gaps():
     assert dt.gaps[0] == ("prefill", pytest.approx(300e-9))
     assert sorted(g for n, g in dt.gaps if n == "load") == [pytest.approx(100e-9),
                                                             pytest.approx(200e-9)]
+
+
+def test_kernel_seconds_from_a_host_instant():
+    """The kernels' time from a host instant on (the profiler's clock is the
+    host's plus `shift`); none where no shift is known."""
+    class P:
+        shift = 0
+        events = [("k", 100, 300), ("k", 250, 400), ("c", 600, 700)]
+
+    assert Profiled.kernel_seconds(P, "k") == pytest.approx(350e-9)
+    assert Profiled.kernel_seconds(P, "k", 200) == pytest.approx(150e-9)
+    P.shift = 100
+    assert Profiled.kernel_seconds(P, "k", 100) == pytest.approx(150e-9)
+    P.shift = None
+    assert Profiled.kernel_seconds(P, "k", 0) == 0.0
+    assert Profiled.kernel_seconds(P, "c") == pytest.approx(100e-9)
 
 
 @pytest.mark.parametrize("name", ["dense-trio.switch", "moe-duo.chat"])

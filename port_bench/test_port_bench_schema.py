@@ -126,6 +126,33 @@ def test_every_reader_defines_read():
                 assert callable(cell.reader(kind, m["name"]))
 
 
+# program field -> the Hugging Face key that publishes it, where a model
+# entry's `published_keys` does not say otherwise
+PUBLISHED = {"d_model": "hidden_size", "num_layers": "num_hidden_layers",
+             "num_heads": "num_attention_heads", "num_kv_heads": "num_key_value_heads",
+             "vocab_size": "vocab_size", "rope_theta": "rope_theta", "norm_eps": "rms_norm_eps"}
+PUBLISHED_MOE = {"moe_d_ff": "moe_intermediate_size", "num_experts": "num_experts",
+                 "experts_per_token": "num_experts_per_tok"}
+PUBLISHED_DENSE = {"d_ff": "intermediate_size"}
+
+
+def assert_published(m: dict, run) -> None:
+    """Each program field of `run` equals the published key that model entry
+    `m` maps it to (`published_keys` over the defaults; every mapped field
+    is compared).  Without a mapping, ``head_dim`` is the published one or
+    hidden_size / num_attention_heads."""
+    keys = {**PUBLISHED, **(PUBLISHED_MOE if run.is_moe else PUBLISHED_DENSE),
+            **m.get("published_keys", {})}
+    hf = m["config"]
+    for field, key in keys.items():
+        assert isinstance(key, str), (m["id"], field, key)
+        value = run.resolved_head_dim if field == "head_dim" else getattr(run, field)
+        assert hf[key] == value, (m["id"], field, key)
+    if "head_dim" not in keys:
+        assert (hf.get("head_dim", hf["hidden_size"] // hf["num_attention_heads"])
+                == run.resolved_head_dim), m["id"]
+
+
 @pytest.mark.parametrize("conf", [c["name"] for c in SPEC["configs"]])
 def test_configuration_file(conf):
     """The file runs the program's own configuration of each model, cut only
@@ -156,26 +183,42 @@ def test_configuration_file(conf):
                 assert getattr(run, f.name) == differs[f.name]["run"], (m["id"], f.name)
             elif f.name not in cut:
                 assert getattr(run, f.name) == getattr(program, f.name), (m["id"], f.name)
+        assert_published(m, run)
         hf = m["config"]
-        assert hf["hidden_size"] == run.d_model
-        assert hf["num_hidden_layers"] == run.num_layers
-        assert hf["num_attention_heads"] == run.num_heads
-        assert hf["num_key_value_heads"] == run.num_kv_heads
-        assert hf["vocab_size"] == run.vocab_size
-        assert hf["rope_theta"] == run.rope_theta
-        assert hf["rms_norm_eps"] == run.norm_eps
-        assert hf.get("head_dim", hf["hidden_size"] // hf["num_attention_heads"]) == run.resolved_head_dim
-        if run.is_moe:
-            assert hf["moe_intermediate_size"] == run.moe_d_ff
-            assert hf["num_experts"] == run.num_experts
-            assert hf["num_experts_per_tok"] == run.experts_per_token
-        else:
-            assert hf["intermediate_size"] == run.d_ff
         for key, cut_to in m["reduced"].items():
             assert hf[key] == cut_to["run"] and cut_to["published"] != cut_to["run"]
         assert m["bytes"] == sizes[m["id"]]
     assert reduced == set(entry["reduced"])
     assert data["pool"]["bytes"] == cell.pool_bytes(data, cfgs)
+
+
+def test_published_keys_are_compared_through_the_map():
+    """A model that publishes its sizes under other names (DeepSeek's
+    `n_routed_experts`, a dense first layer's `intermediate_size` beside the
+    experts' `moe_intermediate_size`) is compared through its map, and a
+    wrong mapped value fails."""
+    from pbench import cell
+
+    data = json.loads((HERE / "configs" / "moe-duo.json").read_text())
+    m = next(x for x in data["models"] if x["id"] == "qwen3-moe-30b-a3b")
+    run = cell.model_configs(data)[m["id"]]
+    hf = dict(m["config"])
+    hf["n_routed_experts"] = hf.pop("num_experts")
+    hf["dense_width"] = run.d_ff
+    entry = dict(m, config=hf, published_keys={"num_experts": "n_routed_experts",
+                                               "d_ff": "dense_width"})
+    assert_published(entry, run)
+    with pytest.raises(KeyError):
+        assert_published(dict(entry, published_keys={}), run)  # today's names alone
+    with pytest.raises(AssertionError):
+        assert_published(dict(entry, config=dict(hf, n_routed_experts=64)), run)
+    with pytest.raises(AssertionError):
+        assert_published(dict(entry, config=dict(hf, dense_width=10944)), run)
+    for note in ([], ["d_ff: no dense layer, the program's default"]):
+        with pytest.raises(AssertionError):  # a field is never left uncompared
+            assert_published(dict(entry, assumed=note, departures=note,
+                                  published_keys={"num_experts": "n_routed_experts",
+                                                  "d_ff": None}), run)
 
 
 def test_kv_arithmetic_follows_the_engine():
@@ -211,8 +254,9 @@ def test_no_source_imports_jax_or_the_reference_package():
 
 
 def test_no_module_the_run_loads_is_jax():
-    """Every module the harness and its readers load, the program's
-    entry points with them, compared by whole top-level name (the program's
+    """Every module the harness, its readers and the reference modules the
+    configurations name load, the program's entry points with them,
+    compared by whole top-level name (the program's
     `repro_torch` begins with the reference's `repro`)."""
     code = f"""
 import sys
@@ -220,9 +264,13 @@ sys.path[:0] = [{str(HERE)!r}, {str(ROOT / 'src')!r}]
 import run
 from pbench import cell, check, probe, serve, counts, traffic, stats, weights
 from reference import lm
+import reference
 serve.engine_classes()
 import json
 spec = json.load(open({str(ROOT / 'BENCHMARK.json')!r}))
+for c in spec["configs"]:
+    for m in json.load(open({str(ROOT)!r} + "/" + c["file"]))["models"]:
+        reference.load(reference.module_of(m))
 for kind, items in (("end_to_end", spec["end_to_end"]), ("metrics", spec["per_layer"])):
     for m in items:
         if m["name"] != "setup_s":
