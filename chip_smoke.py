@@ -488,7 +488,203 @@ def check_kernels() -> dict:
                 "shape": SHAPE_NOTES[label], **row}
     dispatch_cost(main_args)
     rows.update(check_moe_experts())
+    rows.update(check_mla_kernels())
     return rows
+
+
+MLA_MODEL = "deepseek-v2-lite"
+MLA_TABLE = 2048  # pages of 16 the benchmark cell's table holds (16,448 tokens)
+MLA_LENGTH = 16448  # the cell's longest context: 16,384 prompt + 64 decoded
+MLA_PROMPT = 16384
+MLA_PLAIN_PROMPT = 4096  # K2's plain version: its 16,384^2 float32 scores take 17 GB a copy
+MLA_PLAIN_BLOCK = 1024  # query rows of K2 checked at once past it: 16 x 1,024 x 16,384 scores, 1 GB
+
+
+def _causal_rows(q, k, v, scale, rows: slice):
+    """The plain version's formula (`flash_attention_ref`: float32 scores,
+    P in q's dtype) for query rows `rows` alone of a causal call at B 1 with
+    as many kv heads as query heads, over keys [0, rows.stop)."""
+    import torch
+
+    end = rows.stop
+    s = torch.einsum("rhd,thd->hrt", q[0, rows].float(), k[0, :end].float()) * scale
+    qp = torch.arange(rows.start, end, device=q.device)[:, None]
+    s = s.masked_fill(torch.arange(end, device=q.device)[None] > qp, float("-inf"))
+    p = torch.softmax(s, -1).to(q.dtype)
+    return torch.einsum("hrt,thd->rhd", p, v[0, :end])
+
+
+def _check_rows(name: str, out, want, dt: str, desc: str) -> float:
+    """Max abs error of a block of a kernel's output against its plain
+    version, as a share of the block's largest output; raises past the
+    tolerance (late query rows average thousands of values, so their
+    outputs are a few hundredths, and an absolute error would pass them)."""
+    err = float((out.float() - want.float()).abs().max())
+    rel = err / float(want.float().abs().max())
+    line = (f"[kernel] {name} {desc}: max_abs_err {err:.3e}, {rel:.3e} of the block's scale "
+            f"(tol {TOL[dt]:g})")
+    log(line)
+    if not rel < TOL[dt]:
+        raise AssertionError(f"{name} disagrees with its plain version: {line}")
+    return rel
+
+
+def check_mla_kernels() -> dict:
+    """K1's latent mode and K2 at split widths against their plain versions
+    and timed at the benchmark cell's shapes (`[timing]` rows): the latent
+    decode attention of one layer at B 1 over 16,448 tokens beside SDPA
+    over the pre-gathered latent rows, and the un-absorbed prefill
+    attention at S 16,384 (q/k 192, v 128) beside SDPA (v at 128, the
+    installed torch taking unequal widths).  K2's plain version holds its
+    first MLA_PLAIN_PROMPT query rows whole, then a middle block and the
+    last block of rows each against its own output scale.  Returns the two
+    rows."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import visible_pairs
+    from repro_torch.kernels.ref import flash_attention_ref, paged_latent_attention_ref
+    from repro_torch.models import layers
+
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(28)
+    cfg = get_config(MLA_MODEL)
+    scale = layers.mla_softmax_scale(cfg)
+    H, W, V = cfg.num_heads, cfg.latent_width, cfg.kv_lora_rank
+    rows = {}
+    # K1 latent: (B, table pages, lengths)
+    for B, N, lengths in ((1, MLA_TABLE, [MLA_LENGTH]), (1, MLA_TABLE, [1]), (2, 64, [0, 1000]),
+                          (3, 256, [4096, 17, 2500])):
+        P = B * N + 3
+        q = torch.randn((B, H, W), generator=gen).to(dev, torch.bfloat16)
+        pages = torch.randn((P, 16, 1, W), generator=gen).to(dev, torch.bfloat16)
+        tables = torch.randperm(P, generator=gen)[: B * N].reshape(B, N).to(dev, torch.int32)
+        lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+        out = ops.paged_latent_attention(q, pages, tables, lens, v_dim=V, scale=scale)
+        ref = paged_latent_attention_ref(q, pages, tables, lens, v_dim=V, scale=scale)
+        torch.cuda.synchronize()
+        desc = f"latent bfloat16 B{B} H{H} W{W} V{V} T16 N{N} lengths {lengths}"
+        err = _check("paged_attention", out, ref, "bfloat16", desc)
+        if lengths != [MLA_LENGTH]:
+            continue
+        gathered = pages[tables[0].long()].reshape(-1, W)[:MLA_LENGTH][None, None]
+        sdpa = functools.partial(F.scaled_dot_product_attention, q[0][None, None], gathered,
+                                 gathered[..., :V], scale=scale)
+        row = _timing_row(
+            "paged_attention", f"{MLA_MODEL} {desc}", "bfloat16",
+            lambda: ops.paged_latent_attention(q, pages, tables, lens, v_dim=V, scale=scale),
+            lambda: paged_latent_attention_ref(q, pages, tables, lens, v_dim=V, scale=scale),
+            sdpa, "sdpa over the pre-gathered latent rows",
+            (H * W + H * V) * 2 + MLA_LENGTH * W * 2 + N * 4 + 4,
+            2 * H * (W + V) * MLA_LENGTH, err)
+        rows[("paged_attention", MLA_MODEL)] = {
+            "name": "paged_attention (latent)", "route": "cuda",
+            "source": "src/repro_torch/csrc/paged_attention.cu", "replaces": None,
+            "shape": SHAPE_NOTES[MLA_MODEL], **row}
+        del pages, ref, gathered
+    # K2 at split widths: (S, the plain version's S)
+    for S in (2048, MLA_PROMPT):
+        q, k = (torch.randn((1, S, H, 192), generator=gen).to(dev, torch.bfloat16)
+                for _ in range(2))
+        v = torch.randn((1, S, H, 128), generator=gen).to(dev, torch.bfloat16)
+        out = ops.flash_attention(q, k, v, causal=True, scale=scale)
+        desc = f"split widths bfloat16 B1 S{S} H{H} q/k 192 v 128 causal"
+        plain_s = min(S, MLA_PLAIN_PROMPT)
+        qp, kp, vp = q[:, :plain_s], k[:, :plain_s], v[:, :plain_s]
+        err = _check("flash_attention", out[:, :plain_s],
+                     flash_attention_ref(qp, kp, vp, causal=True, scale=scale), "bfloat16", desc)
+        if S > plain_s:  # a middle block and the last, whose key ranges are the longest
+            for start in (S // 2 - MLA_PLAIN_BLOCK // 2, S - MLA_PLAIN_BLOCK):
+                block = slice(start, start + MLA_PLAIN_BLOCK)
+                _check_rows("flash_attention", out[0, block], _causal_rows(q, k, v, scale, block),
+                            "bfloat16", f"{desc}, query rows {start}-{block.stop - 1}")
+        if S != MLA_PROMPT:
+            continue
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        row = _timing_row(
+            "flash_attention", f"{MLA_MODEL} {desc}", "bfloat16",
+            lambda: ops.flash_attention(q, k, v, causal=True, scale=scale),
+            lambda: flash_attention_ref(qp, kp, vp, causal=True, scale=scale),
+            functools.partial(F.scaled_dot_product_attention, qt, kt, vt, is_causal=True,
+                              scale=scale), "sdpa (v 128)",
+            2 * S * H * (192 * 2 + 128 * 2), 2 * H * (192 + 128) * visible_pairs(S, True, 0),
+            err, note=f"; the plain version's time is at S {plain_s}")
+        rows[("flash_attention", MLA_MODEL)] = {
+            "name": "flash_attention (split widths)", "route": "cuda",
+            "source": "src/repro_torch/csrc/flash_attention.cu", "replaces": None,
+            "shape": SHAPE_NOTES[MLA_MODEL], **row}
+    return rows
+
+
+MLA_LAYERS = 4  # the dense layer and three MoE layers, at full width
+MLA_PHASE_PROMPT, MLA_PHASE_GEN, MLA_PHASE_REQUESTS = 2048, 16, 3
+
+
+def mla_phase(device="cuda") -> dict:
+    """`[mla]`: the `Gateway` over deepseek-v2-lite at full width in
+    MLA_LAYERS layers (weights drawn on the card), three warm requests of a
+    2,048-token prompt (a block table of 128) and 16 tokens: K2 runs at
+    split widths once a layer a prefill, K1 in its latent mode once a layer
+    a decode step (the counters `paged_attention.latent_launches` and
+    `flash_attention.split_launches`), the second request's steps are all
+    replays, and the first request's first decoded logits are those of the
+    plain attention path within the bf16 tolerance.  Returns its launches
+    by kernel, keyed by the model."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.trace import Request
+    from repro_torch.kernels import ops
+    from repro_torch.serverless.gateway import Gateway
+    from repro_torch.serving.engine import Engine
+
+    cfg = dataclasses.replace(get_config(MLA_MODEL), num_layers=MLA_LAYERS)
+    tree = draw_weights(cfg, 50, device)
+    eng = Engine(16 << 30, device=device)
+    eng.register(MLA_MODEL, cfg, init_fn=lambda: tree)
+    gw = Gateway(eng, keep_alive="fixed:1000000", prompt_len=MLA_PHASE_PROMPT,
+                 gen_tokens=MLA_PHASE_GEN)
+    reqs = [Request(time=10.0 * i, model_id=MLA_MODEL, dataset="mla",
+                    prompt_tokens=MLA_PHASE_PROMPT, output_tokens=MLA_PHASE_GEN, batch_size=1)
+            for i in range(MLA_PHASE_REQUESTS)]
+    ops.reset_launch_counts()
+    graphs = []
+    for r in reqs:
+        gw.run_trace([r])
+        g = eng.step_graphs
+        graphs.append((g.eager_steps, g.captures, g.replays))
+    torch.cuda.synchronize()
+    made, modes = ops.launch_counts(), ops.mode_counts()
+    n = MLA_PHASE_REQUESTS
+    want = {"paged_attention.latent": MLA_LAYERS * MLA_PHASE_GEN * n,
+            "flash_attention.split": MLA_LAYERS * n}
+    log(f"[mla] {n} requests, prompt {MLA_PHASE_PROMPT}, {MLA_PHASE_GEN} tokens: launches {made}, "
+        f"modes {modes}; graphs (eager, captures, replays) after each {graphs}")
+    if modes != want or made["paged_attention"] != want["paged_attention.latent"]:
+        raise AssertionError(f"[mla] launches {made} {modes}, expected {want}")
+    if graphs[1][:2] != graphs[0][:2] or graphs[2][:2] != graphs[0][:2]:
+        raise AssertionError(f"[mla] a warm request made eager steps or captures: {graphs}")
+    # the first decoded logits against the plain attention path
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (1, MLA_PHASE_PROMPT),
+                                     generator=torch.Generator().manual_seed(7),
+                                     dtype=torch.int32).to(device)}
+    firsts = {}
+    for mode in ("kernel", "ref"):
+        inst = eng.start_instance(MLA_MODEL, attn_mode=mode)
+        tok = inst.prefill(batch).argmax(-1).to(torch.int32)
+        firsts[mode] = inst.decode(tok).float()
+        inst.finish()
+    err = rel_err(firsts["kernel"], firsts["ref"])
+    log(f"[mla] first decoded logits against the plain attention path: rel err {err:.3e}")
+    if not err < TOL["bfloat16"]:
+        raise AssertionError(f"[mla] kernel path leaves the plain path: {err}")
+    eng.close()
+    return {MLA_MODEL: {"paged_attention": made["paged_attention"],
+                        "flash_attention": made["flash_attention"]}}
 
 
 def check_moe_experts() -> dict:
@@ -621,7 +817,10 @@ SHAPE_NOTES = {"main": "llama3.2-1b, main path (launches: main path)",
                                "requests there, encoder and decoder self-attention)",
                "distributed": "llama3.2-1b, [distributed] prefill step on a 1x1 mesh "
                               "(launches: the phase's, 2 calls of the step, K2 through "
-                              "local_map, and 1 of Model.prefill)"}
+                              "local_map, and 1 of Model.prefill)",
+               "deepseek-v2-lite": "deepseek-v2-lite, the benchmark cell's shapes: K1 latent "
+                                   "B 1 over 16,448 tokens, K2 at S 16,384 (launches: [mla], "
+                                   "4 of 27 layers, 3 requests)"}
 
 
 def _bound(nbytes: int, flops: int, dtype: str) -> tuple[float, str]:
@@ -3433,6 +3632,10 @@ def main(argv=None) -> int:
     launches.update(dense_phase(dcfgs, weights))
     log(f"[phase] dense {time.perf_counter() - t0:.1f} s; {host_memory()}")
     del weights
+    release_memory()
+    t0 = time.perf_counter()
+    launches.update(mla_phase())
+    log(f"[phase] mla {time.perf_counter() - t0:.1f} s; {host_memory()}")
     release_memory()
     t0 = time.perf_counter()
     scfgs = state_configs()

@@ -63,6 +63,23 @@ class ModelConfig:
     num_experts: int = 0
     experts_per_token: int = 0
     moe_d_ff: int = 0  # per-expert ff width (qwen3-moe uses 768)
+    norm_topk_prob: bool = True  # renormalise the k routing weights to sum to 1
+    num_shared_experts: int = 0  # experts every token takes: one SwiGLU of n * moe_d_ff
+    first_k_dense: int = 0  # leading layers whose MLP is the dense one (d_ff)
+
+    # --- multi-head latent attention (DeepSeek-V2); kv_lora_rank 0: none ---
+    kv_lora_rank: int = 0  # width of the cached latent c
+    qk_nope_head_dim: int = 0  # per-head q/k width without rotary embedding
+    qk_rope_head_dim: int = 0  # rotary width, one k_pe shared by every head
+    v_head_dim: int = 0
+
+    # --- YaRN rotary scaling; yarn_factor 0: none ---
+    yarn_factor: float = 0.0
+    yarn_original_max_pos: int = 0
+    yarn_beta_fast: float = 32.0
+    yarn_beta_slow: float = 1.0
+    yarn_mscale: float = 1.0
+    yarn_mscale_all_dim: float = 0.0
 
     # --- attention extras ---
     sliding_window: int = 0  # >0 enables SWA for "swa"/local layers
@@ -116,6 +133,26 @@ class ModelConfig:
         return self.moe_d_ff or self.d_ff
 
     @property
+    def is_mla(self) -> bool:
+        return self.kv_lora_rank > 0
+
+    @property
+    def latent_width(self) -> int:
+        """Values a token a layer of the latent cache: c and k_pe."""
+        return self.kv_lora_rank + self.qk_rope_head_dim
+
+    @property
+    def qk_head_dim(self) -> int:
+        """Per-head width of q and k: the resolved head dim, or MLA's nope + rope."""
+        return self.qk_nope_head_dim + self.qk_rope_head_dim if self.is_mla \
+            else self.resolved_head_dim
+
+    def segment_is_moe(self, index: int) -> bool:
+        """Whether segment `index`'s MLP is routed experts (the leading dense
+        layers are segment 0 of their own)."""
+        return self.is_moe and not (self.first_k_dense and index == 0)
+
+    @property
     def torch_dtype(self) -> torch.dtype:
         return getattr(torch, self.dtype)
 
@@ -142,6 +179,9 @@ class ModelConfig:
         a trailing repeat-1 segment.
         """
         pat = self.pattern
+        if self.first_k_dense and len(set(pat)) == 1:
+            k = self.first_k_dense  # two segments: the dense layers, then the MoE ones
+            return (((pat[0],), k), ((pat[0],), len(pat) - k))
         if len(set(pat)) == 1:
             return (((pat[0],), len(pat)),)
         for u in range(1, 5):
@@ -163,6 +203,8 @@ class ModelConfig:
     # KV/state footprint per token of context, bytes (for ElasticKV sizing).
     def kv_bytes_per_token(self, dtype_bytes: int = 2) -> int:
         per_layer = 2 * self.num_kv_heads * self.resolved_head_dim * dtype_bytes
+        if self.is_mla:  # one latent row [c | k_pe], read as K and as V
+            per_layer = self.latent_width * dtype_bytes
         n_attn = sum(1 for k in self.pattern if k in ("attn", "swa"))
         return per_layer * n_attn
 
@@ -175,9 +217,17 @@ class ModelConfig:
         attn = q + kv + o
         if self.qkv_bias:
             attn += (self.num_heads + 2 * self.num_kv_heads) * hd
+        if self.is_mla:  # wq, wkv_a, the latent norm, wkv_b, wo
+            H = self.num_heads
+            attn = (d * H * self.qk_head_dim + d * self.latent_width + self.kv_lora_rank
+                    + self.kv_lora_rank * H * (self.qk_nope_head_dim + self.v_head_dim)
+                    + H * self.v_head_dim * d)
         dense_mlp = 3 * d * self.d_ff  # gate/up/down
         moe_mlp = self.num_experts * 3 * d * self.expert_ff + d * self.num_experts
+        moe_mlp += 3 * d * self.num_shared_experts * self.expert_ff  # shared experts
         total = 0
+        if self.is_moe:  # the leading dense layers' MLP
+            total += self.first_k_dense * (dense_mlp - moe_mlp)
         for kind in self.pattern:
             if kind in ("attn", "swa"):
                 total += attn + (moe_mlp if self.is_moe else dense_mlp)
@@ -240,6 +290,12 @@ class ModelConfig:
             encoder_seq=min(self.encoder_seq, 32) if self.encoder_seq else 0,
             vision_stub_patches=min(self.vision_stub_patches, 8),
             mrope_sections=(8, 4, 4) if self.mrope_sections else (),
+            num_shared_experts=min(self.num_shared_experts, 2),
+            first_k_dense=min(self.first_k_dense, 1),
+            kv_lora_rank=64 if self.is_mla else 0,
+            qk_nope_head_dim=32 if self.is_mla else 0,
+            qk_rope_head_dim=16 if self.is_mla else 0,
+            v_head_dim=32 if self.is_mla else 0,
         )
 
 
@@ -253,7 +309,11 @@ def register(cfg: ModelConfig) -> ModelConfig:
 
 def get_config(name: str) -> ModelConfig:
     from repro_torch import configs  # noqa: F401  (triggers registration)
+    from repro_torch.configs.port_only import PORT_ONLY
 
+    # the port-only architectures, which `all_configs` leaves out
+    if name not in _REGISTRY and name in PORT_ONLY:
+        return PORT_ONLY[name]
     if name not in _REGISTRY:
         raise KeyError(f"unknown architecture {name!r}; have {sorted(_REGISTRY)}")
     return _REGISTRY[name]

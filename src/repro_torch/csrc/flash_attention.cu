@@ -43,6 +43,15 @@
 // so the causal triangle leaves no tail of idle SMs.  Any S is taken.
 // Loads by TMA, warp specialisation and GQA packing are later work.
 //
+// Split widths (`flash_attention_split_launch`, bfloat16): q and k HD wide,
+// v and the output HDV wide, at the caller's scale -- latent attention's
+// prefill (DeepSeek-V2: q/k 128 + 64 = 192, v 128).  The same kernel with
+// the V tile, the P.V product and the output at HDV (m64n128k16 at 128):
+// padding v to 192 instead would do 1.25x the P.V work and read and write
+// 1.5x the v and output bytes, and padding every width to 256 1.6x the
+// operations.  Q tile and a stage's K at 192 are three 64-column blocks;
+// 105 KB of shared memory.
+//
 // float32, `flash_f32_kernel`: products on the float32 CUDA cores (TF32 or
 // bf16 products would miss fp32's 2e-5 tolerance).  A block of 128 threads
 // owns 64 query rows, two threads per row; Q, K, V tiles are staged into
@@ -101,9 +110,9 @@ struct Tile {
   }
 };
 
-template <int HD>
+template <int HD, int HDV = HD>
 constexpr size_t smem_bytes() {  // alignment slack + Q tile + 2 stages of K and V
-  return 1024 + static_cast<size_t>(kBQ + 4 * kBK) * HD * 2;
+  return 1024 + (static_cast<size_t>(kBQ) * HD + 2 * static_cast<size_t>(kBK) * (HD + HDV)) * 2;
 }
 
 // kBQ rows [r0, r0 + kBQ) of a (B, S, heads, HD) tensor's (b, ., head)
@@ -229,16 +238,18 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
-template <int HD>
+template <int HD, int HDV = HD>
 __global__ void __launch_bounds__(kThreads)
 flash_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                   const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out,
                   int S, int H, int K, int causal, int window, float scale_log2) {
   using L = Tile<HD>;
+  using LV = Tile<HDV>;  // the V tile (HDV == HD but at split widths)
   constexpr int KS = HD / 16;  // k-steps of Q.K^T
   constexpr int NT = kBK / 8;  // 8-key column groups of the scores
-  constexpr int DT = HD / 8;   // 8-wide column groups of the output
-  constexpr int NH = HD > 128 ? 128 : HD;  // output columns of one P.V wgmma
+  constexpr int DT = HDV / 8;  // 8-wide column groups of the output
+  constexpr int NH = HDV > 128 ? 128 : HDV;  // output columns of one P.V wgmma
+  constexpr uint32_t kStage = L::kBytes + LV::kBytes;  // a ring stage: K, then V
   const int G = H / K;
   const int b = blockIdx.x / H;
   const int hq = blockIdx.x % H;
@@ -251,7 +262,7 @@ flash_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __re
 
   extern __shared__ unsigned char smem[];
   const uint32_t qs = (smem_addr(smem) + 1023u) & ~1023u;
-  const uint32_t kv0 = qs + L::kBytes;  // stage s: K at kv0 + 2 s kBytes, V after it
+  const uint32_t kv0 = qs + L::kBytes;  // stage s: K at kv0 + s kStage, V after it
 
   const int nk = (S + kBK - 1) / kBK;
   int kt_end = nk;
@@ -261,28 +272,28 @@ flash_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __re
 
   load_tile<HD>(qs, q, b, q0, S, H, hq);
   load_tile<HD>(kv0, k, b, kt_begin * kBK, S, K, kvh);
-  load_tile<HD>(kv0 + L::kBytes, v, b, kt_begin * kBK, S, K, kvh);
+  load_tile<HDV>(kv0 + L::kBytes, v, b, kt_begin * kBK, S, K, kvh);
   cp_async_commit();
 
   const int row_lo = q0 + warp * 16 + gid;  // this lane's two query rows
   const int row_hi = row_lo + 8;
-  float o[HD / 2];  // wgmma accumulator: o[4 j + e] is column group j
+  float o[HDV / 2];  // wgmma accumulator: o[4 j + e] is column group j
 #pragma unroll
-  for (int i = 0; i < HD / 2; ++i) o[i] = 0.f;
+  for (int i = 0; i < HDV / 2; ++i) o[i] = 0.f;
   float m_lo = -INFINITY, m_hi = -INFINITY, l_lo = 0.f, l_hi = 0.f;  // log2 domain
 
   for (int kt = kt_begin, it = 0; kt < kt_end; ++kt, ++it) {
     const int k0 = kt * kBK;
     if (kt + 1 < kt_end) {  // next tile -> the other stage, in flight meanwhile
-      const uint32_t st = kv0 + ((it + 1) & 1) * 2 * L::kBytes;
+      const uint32_t st = kv0 + ((it + 1) & 1) * kStage;
       load_tile<HD>(st, k, b, k0 + kBK, S, K, kvh);
-      load_tile<HD>(st + L::kBytes, v, b, k0 + kBK, S, K, kvh);
+      load_tile<HDV>(st + L::kBytes, v, b, k0 + kBK, S, K, kvh);
     }
     cp_async_commit();
     cp_async_wait<1>();  // all but the newest group: this tile (and Q) landed
     asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // visible to wgmma
     __syncthreads();
-    const uint32_t ks = kv0 + (it & 1) * 2 * L::kBytes;
+    const uint32_t ks = kv0 + (it & 1) * kStage;
     const uint32_t vs = ks + L::kBytes;
 
     // S = Q K^T (64 x 64), both operands from shared memory
@@ -362,17 +373,17 @@ flash_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __re
       pa[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
       pa[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
     }
-    pin<HD / 2>(o);
+    pin<HDV / 2>(o);
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < kBK / 16; ++kk) {
 #pragma unroll
-      for (int h = 0; h < HD / NH; ++h)  // output columns [h NH, (h + 1) NH)
+      for (int h = 0; h < HDV / NH; ++h)  // output columns [h NH, (h + 1) NH)
         wgmma_rs<NH>(o + h * (NH / 2), pa[kk],
-                     L::mn_major(vs + h * (NH / L::AC) * L::kBlock, kk));
+                     LV::mn_major(vs + h * (NH / LV::AC) * LV::kBlock, kk));
     }
     wgmma_commit_and_wait();
-    pin<HD / 2>(o);
+    pin<HDV / 2>(o);
     __syncthreads();  // this stage is refilled by the next iteration's copies
   }
   cp_async_wait<0>();
@@ -384,8 +395,8 @@ flash_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __re
   }
   const float inv_lo = 1.f / fmaxf(l_lo, 1e-30f);
   const float inv_hi = 1.f / fmaxf(l_hi, 1e-30f);
-  __nv_bfloat16* o_lo = out + ((static_cast<size_t>(b) * S + row_lo) * H + hq) * HD + 2 * tig;
-  __nv_bfloat16* o_hi = out + ((static_cast<size_t>(b) * S + row_hi) * H + hq) * HD + 2 * tig;
+  __nv_bfloat16* o_lo = out + ((static_cast<size_t>(b) * S + row_lo) * H + hq) * HDV + 2 * tig;
+  __nv_bfloat16* o_hi = out + ((static_cast<size_t>(b) * S + row_hi) * H + hq) * HDV + 2 * tig;
 #pragma unroll
   for (int j = 0; j < DT; ++j) {
     if (row_lo < S)
@@ -408,6 +419,22 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out, int B
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out), S, H, K,
       causal, window, kLog2e / sqrtf(static_cast<float>(HD)));
+  return cudaGetLastError();
+}
+
+// The split-width instance (q/k HD, v and output HDV) at `scale`.
+template <int HD, int HDV>
+cudaError_t launch_split(const void* q, const void* k, const void* v, void* out, int B, int S,
+                         int H, int K, int causal, int window, float scale,
+                         cudaStream_t stream) {
+  constexpr auto kernel = flash_bf16_kernel<HD, HDV>;
+  cudaError_t err = allow_smem<kernel>(smem_bytes<HD, HDV>());
+  if (err != cudaSuccess) return err;
+  const dim3 grid(B * H, (S + kBQ - 1) / kBQ);
+  kernel<<<grid, kThreads, smem_bytes<HD, HDV>(), stream>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out), S, H, K,
+      causal, window, kLog2e * scale);
   return cudaGetLastError();
 }
 
@@ -590,4 +617,18 @@ extern "C" int flash_attention_launch(const void* q, const void* k, const void* 
     }
   }
   return cudaErrorInvalidValue;
+}
+
+// Split widths: q, k (B, S, *, hd), v (B, S, K, hdv), out (B, S, H, hdv),
+// bfloat16, scores at `scale`; (hd, hdv) (192, 128) only.  Returns the
+// cudaError_t of the launch (0 = success).
+extern "C" int flash_attention_split_launch(const void* q, const void* k, const void* v,
+                                            void* out, int B, int S, int H, int K, int hd,
+                                            int hdv, int causal, int window, float scale,
+                                            int dtype, void* stream) {
+  if (B == 0 || S == 0) return cudaSuccess;
+  if (dtype != kBFloat16 || hd != 192 || hdv != 128 || K <= 0 || H % K)
+    return cudaErrorInvalidValue;
+  return bf16::launch_split<192, 128>(q, k, v, out, B, S, H, K, causal, window, scale,
+                                      static_cast<cudaStream_t>(stream));
 }

@@ -51,6 +51,35 @@
 //    stage's softmax one warp per row, P.V one thread per (dim, row set).
 //    bfloat16 takes mma at every G, G 1 too: its 16-row tile of one real
 //    row beat these dot products 2.3-2.6x on an H100 (PERF.md).
+//
+// Latent mode (`paged_latent_launch`): the decode attention of absorbed
+// multi-head latent attention (DeepSeek-V2).  One kv head of W = 576
+// values a token (the latent row [c | k_pe]) is K, its first V = 512
+// columns are V, and the H query heads of a sequence attend to it at the
+// caller's scale; out (B, H, 512).  At B 1 it reads lengths[b] * 1152
+// bytes a layer (18.9 MB at 16k tokens) and does 2 * 16 * (576 + 512)
+// operations a token, so it is bound by bytes, and with one kv head the
+// context's splits alone are the grid: `latent_split_plan` in the wrapper
+// cuts a full table into about two blocks an SM.  Per block (split,
+// 16-row group, b), 4 warps:
+//  - the 16 query rows sit in shared memory; the split's latent rows
+//    stream in 64-token stages (two-stage cp.async ring, rows padded by 16
+//    bytes for ldmatrix), 74.8 KB a stage;
+//  - Q.K^T: each warp scores 16 tokens of the stage over the 576 columns
+//    (36 mma.sync m16n8k16 steps), the scaled, masked scores go to shared
+//    memory;
+//  - every warp reads the stage's 16 x 64 scores back, keeps the same
+//    online softmax (so no warp waits on another's max), rounds P to bf16
+//    as the A operand, and runs P.V over all 64 tokens for its own 128 of
+//    the 512 output columns: the output tile stays 64 float registers a
+//    thread, where owning tokens would take 256;
+//  - a sequence with one live split writes its output; otherwise each live
+//    split writes float32 partials (m, l, acc) and a second kernel, the
+//    merge instance, combines them: grid (16 column slices of 32, H, B), a
+//    block's 16 lanes of splits each walk a sixteenth of them, 8 loads at a
+//    time, and fold through shared memory.  Spread over 256 blocks the
+//    merge is about one group of L2 round trips long, where one block
+//    merging 129 partials of 32 KB would take longer than the split kernel.
 #include "common.cuh"
 
 namespace {
@@ -60,7 +89,10 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kChunk = 64;  // tokens of one ring stage: 16 a warp
 constexpr int kRows = 16;   // query rows of a block: the M of an mma tile
 
-enum Core : int { kMma = 0, kSimt = 1 };
+enum Core : int { kMma = 0, kSimt = 1, kLatent = 2, kMerge = 3 };
+
+constexpr int kLatW = 576;  // latent mode: q/k width, [c (512) | k_pe (64)]
+constexpr int kLatV = 512;  // latent mode: v width, the rows' first columns
 
 struct Args {
   const void* q;
@@ -379,9 +411,306 @@ __device__ __forceinline__ void simt_core(const Args& a, const T* qb, int rows, 
   __syncthreads();
 }
 
+
+// ------------------------------------------------------------ latent mode
+namespace latent {
+
+constexpr int RS = kLatW + 8;          // Q and ring row stride (bf16): 16 bytes of pad
+constexpr int kSC = kChunk + 4;        // score row stride (floats)
+constexpr int kCols = kLatV / kWarps;  // output columns a warp owns
+constexpr int kSlice = 32;             // output columns a merge block folds
+constexpr int kMergeLanes = kThreads / (kSlice / 4);  // splits a merge block walks at once
+
+__host__ __device__ constexpr size_t smem_bytes(int stages, int pages) {
+  return size_t(kRows) * RS * 2 + size_t(stages) * kChunk * RS * 2 +
+         size_t(kRows) * kSC * 4 + size_t(pages) * 4;
+}
+
+// One split of one (b, 16-row group): see the source note.
+__device__ __forceinline__ void split_kernel(const Args& a, int stages) {
+  using bf16 = __nv_bfloat16;
+  const int split = blockIdx.x, hb = blockIdx.y, b = blockIdx.z;
+  const int h0 = hb * kRows;
+  const int rows = min(kRows, a.H - h0);
+  const int tid = threadIdx.x, w = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
+  bf16* out = static_cast<bf16*>(a.out) + (static_cast<size_t>(b) * a.H + h0) * kLatV;
+
+  const int len = min(a.lengths[b], a.N * a.T);
+  if (len <= 0) {
+    if (split == 0)
+      for (int i = tid; i < rows * kLatV; i += kThreads) out[i] = __float2bfloat16_rn(0.f);
+    return;
+  }
+  const int s0 = split * a.split_tokens;
+  if (s0 >= len) return;  // dead split: touches no table entry
+  const int n = min(a.split_tokens, len - s0);
+  const int live = (len + a.split_tokens - 1) / a.split_tokens;
+
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* qs = reinterpret_cast<bf16*>(smem_raw);  // [kRows][RS]
+  bf16* ring = qs + kRows * RS;                  // [stages][kChunk][RS]
+  float* sc = reinterpret_cast<float*>(ring + stages * kChunk * RS);  // [kRows][kSC]
+  int* pg = reinterpret_cast<int*>(sc + kRows * kSC);
+
+  const int npages = (n + a.T - 1) / a.T;
+  const int* tb = a.tables + static_cast<size_t>(b) * a.N + s0 / a.T;
+  for (int i = tid; i < npages; i += kThreads) pg[i] = tb[i];
+  // the query rows (zeros past `rows`), in the first stage's copy group
+  const bf16* qg = static_cast<const bf16*>(a.q) + (static_cast<size_t>(b) * a.H + h0) * kLatW;
+  for (int i = tid; i < kRows * (kLatW / 8); i += kThreads) {
+    const int r = i / (kLatW / 8), p = i % (kLatW / 8);
+    const bool in = r < rows;
+    cp_async16(smem_addr(qs + r * RS + p * 8), qg + (in ? r * kLatW + p * 8 : 0), in ? 16 : 0);
+  }
+  __syncthreads();
+
+  const bf16* base = static_cast<const bf16*>(a.k_pages);
+  auto issue = [&](int c, int stage) {  // chunk c's latent rows -> ring stage
+    bf16* rs = ring + stage * kChunk * RS;
+    for (int i = tid; i < kChunk * (kLatW / 8); i += kThreads) {
+      const int j = i / (kLatW / 8), p = i % (kLatW / 8);
+      const int tok = c * kChunk + j;
+      const uint32_t d = smem_addr(rs + j * RS + p * 8);
+      if (tok < n)
+        cp_async16(d, base + (static_cast<size_t>(pg[tok / a.T]) * a.T + tok % a.T) * kLatW +
+                          p * 8);
+      else
+        cp_async16(d, base, 0);
+    }
+    cp_async_commit();
+  };
+
+  float o[kCols / 8][4];
+#pragma unroll
+  for (int i = 0; i < kCols / 8; ++i) o[i][0] = o[i][1] = o[i][2] = o[i][3] = 0.f;
+  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;  // rows g and g + 8
+  const int chunks = (n + kChunk - 1) / kChunk;
+  issue(0, 0);
+  for (int c = 0; c < chunks; ++c) {
+    if (c + 1 < chunks) {
+      issue(c + 1, (c + 1) % stages);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const bf16* ks = ring + (c % stages) * kChunk * RS;
+    {  // Q.K^T of the warp's 16 tokens, scaled and masked, into `sc`
+      // two accumulator pairs, even and odd k-steps, halve the chain of
+      // dependent products
+      float s[2][4] = {}, s2[2][4] = {};
+      if (c * kChunk + w * 16 < n) {  // warp-uniform
+        const bf16* kw = ks + w * 16 * RS;
+#pragma unroll 2
+        for (int kk = 0; kk < kLatW / 16; kk += 2) {
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            uint32_t qa[4], b0, b1, b2, b3;
+            ldsm_x4(smem_addr(qs + (lane & 15) * RS + (kk + h) * 16 + (lane >> 4) * 8), qa[0],
+                    qa[1], qa[2], qa[3]);
+            ldsm_x4(smem_addr(kw + ((lane >> 4) * 8 + (lane & 7)) * RS + (kk + h) * 16 +
+                              ((lane >> 3) & 1) * 8),
+                    b0, b1, b2, b3);
+            mma_bf16(h ? s2[0] : s[0], qa, b0, b1);
+            mma_bf16(h ? s2[1] : s[1], qa, b2, b3);
+          }
+        }
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) s[nt][e] += s2[nt][e];
+      }
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int j = w * 16 + nt * 8 + 2 * t + (e & 1);
+          sc[(g + (e >> 1) * 8) * kSC + j] = c * kChunk + j < n ? s[nt][e] * a.scale : -INFINITY;
+        }
+    }
+    __syncthreads();
+    // the stage's online softmax, the same in every warp; P as mma A fragments
+    float sv[kChunk / 16][8];
+    float mx0 = -INFINITY, mx1 = -INFINITY;
+#pragma unroll
+    for (int kk = 0; kk < kChunk / 16; ++kk) {
+      const int c0 = kk * 16 + 2 * t;
+      const float* r0 = sc + g * kSC + c0;
+      const float* r1 = sc + (g + 8) * kSC + c0;
+      sv[kk][0] = r0[0]; sv[kk][1] = r0[1]; sv[kk][2] = r1[0]; sv[kk][3] = r1[1];
+      sv[kk][4] = r0[8]; sv[kk][5] = r0[9]; sv[kk][6] = r1[8]; sv[kk][7] = r1[9];
+      mx0 = fmaxf(mx0, fmaxf(fmaxf(sv[kk][0], sv[kk][1]), fmaxf(sv[kk][4], sv[kk][5])));
+      mx1 = fmaxf(mx1, fmaxf(fmaxf(sv[kk][2], sv[kk][3]), fmaxf(sv[kk][6], sv[kk][7])));
+    }
+    const float n0 = fmaxf(m0, quad_max(mx0)), n1 = fmaxf(m1, quad_max(mx1));
+    const float z0 = n0 == -INFINITY ? 0.f : n0, z1 = n1 == -INFINITY ? 0.f : n1;
+    const float al0 = expf(m0 - z0), al1 = expf(m1 - z1);
+    m0 = n0;
+    m1 = n1;
+    uint32_t pa[kChunk / 16][4];
+    float ps0 = 0.f, ps1 = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < kChunk / 16; ++kk) {
+      float p[8];
+#pragma unroll
+      for (int e = 0; e < 8; ++e) p[e] = expf(sv[kk][e] - ((e >> 1) & 1 ? z1 : z0));
+      ps0 += p[0] + p[1] + p[4] + p[5];
+      ps1 += p[2] + p[3] + p[6] + p[7];
+      pa[kk][0] = pack_bf16(p[0], p[1]);
+      pa[kk][1] = pack_bf16(p[2], p[3]);
+      pa[kk][2] = pack_bf16(p[4], p[5]);
+      pa[kk][3] = pack_bf16(p[6], p[7]);
+    }
+    l0 = l0 * al0 + ps0;
+    l1 = l1 * al1 + ps1;
+#pragma unroll
+    for (int nt = 0; nt < kCols / 8; ++nt) {
+      o[nt][0] *= al0;
+      o[nt][1] *= al0;
+      o[nt][2] *= al1;
+      o[nt][3] *= al1;
+    }
+    // P.V over the stage's 64 tokens, the warp's kCols columns
+#pragma unroll
+    for (int kk = 0; kk < kChunk / 16; ++kk) {
+      const bf16* vs = ks + kk * 16 * RS + w * kCols;
+#pragma unroll
+      for (int dp = 0; dp < kCols / 16; ++dp) {
+        uint32_t b0, b1, b2, b3;
+        ldsm_x4_trans(smem_addr(vs + (((lane >> 3) & 1) * 8 + (lane & 7)) * RS + dp * 16 +
+                                (lane >> 4) * 8),
+                      b0, b1, b2, b3);
+        mma_bf16(o[2 * dp], pa[kk], b0, b1);
+        mma_bf16(o[2 * dp + 1], pa[kk], b2, b3);
+      }
+    }
+    __syncthreads();  // the stage and the scores are free
+  }
+  l0 = quad_sum(l0);
+  l1 = quad_sum(l1);
+  const int col0 = w * kCols + 2 * t;
+  if (live == 1) {  // the only live split: the output directly
+    const float i0 = 1.f / fmaxf(l0, 1e-30f), i1 = 1.f / fmaxf(l1, 1e-30f);
+#pragma unroll
+    for (int nt = 0; nt < kCols / 8; ++nt) {
+      if (g < rows)
+        *reinterpret_cast<uint32_t*>(out + g * kLatV + col0 + nt * 8) =
+            pack_bf16(o[nt][0] * i0, o[nt][1] * i0);
+      if (g + 8 < rows)
+        *reinterpret_cast<uint32_t*>(out + (g + 8) * kLatV + col0 + nt * 8) =
+            pack_bf16(o[nt][2] * i1, o[nt][3] * i1);
+    }
+    return;
+  }
+  const size_t hrow = static_cast<size_t>(b) * a.H + h0;
+  float* acc0 = a.part_acc + ((hrow + g) * a.splits + split) * kLatV + col0;
+  float* acc1 = a.part_acc + ((hrow + g + 8) * a.splits + split) * kLatV + col0;
+#pragma unroll
+  for (int nt = 0; nt < kCols / 8; ++nt) {
+    if (g < rows) *reinterpret_cast<float2*>(acc0 + nt * 8) = make_float2(o[nt][0], o[nt][1]);
+    if (g + 8 < rows)
+      *reinterpret_cast<float2*>(acc1 + nt * 8) = make_float2(o[nt][2], o[nt][3]);
+  }
+  if (w == 0 && t == 0) {
+    if (g < rows) {
+      a.part_m[(hrow + g) * a.splits + split] = m0;
+      a.part_l[(hrow + g) * a.splits + split] = l0;
+    }
+    if (g + 8 < rows) {
+      a.part_m[(hrow + g + 8) * a.splits + split] = m1;
+      a.part_l[(hrow + g + 8) * a.splits + split] = l1;
+    }
+  }
+}
+
+// The merge of a sequence's live splits: block (column slice, head, b); a
+// thread holds 4 columns and walks splits j, j + kMergeLanes, ..., eight
+// loads at a time, then the block folds its kMergeLanes partial sums.
+__device__ __forceinline__ void merge_kernel(const Args& a) {
+  constexpr int C4 = kSlice / 4;  // float4 columns of the slice
+  constexpr int kGroup = 8;
+  const int slice = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int len = min(a.lengths[b], a.N * a.T);
+  const int live = len <= 0 ? 0 : (len + a.split_tokens - 1) / a.split_tokens;
+  if (live <= 1) return;  // written by the split kernel
+  const int lane = threadIdx.x % C4, j = threadIdx.x / C4;
+  const size_t hrow = static_cast<size_t>(b) * a.H + h;
+  const float* pm = a.part_m + hrow * a.splits;
+  const float* pl = a.part_l + hrow * a.splits;
+  const float4* pa =
+      reinterpret_cast<const float4*>(a.part_acc + hrow * a.splits * kLatV) + slice * C4 + lane;
+  float mx = -INFINITY, l = 0.f;
+  float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int s0 = j; s0 < live; s0 += kMergeLanes * kGroup) {
+    float ms[kGroup], ls[kGroup];
+    float4 v[kGroup];
+#pragma unroll
+    for (int q = 0; q < kGroup; ++q) {
+      const int s = s0 + q * kMergeLanes;
+      const bool in = s < live;
+      ms[q] = in ? __ldcg(pm + s) : -INFINITY;
+      ls[q] = in ? __ldcg(pl + s) : 0.f;
+      v[q] = in ? __ldcg(pa + static_cast<size_t>(s) * (kLatV / 4)) : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+    float mn = mx;
+#pragma unroll
+    for (int q = 0; q < kGroup; ++q) mn = fmaxf(mn, ms[q]);  // finite: split s0 is live
+    const float f = expf(mx - mn);
+    acc.x *= f;
+    acc.y *= f;
+    acc.z *= f;
+    acc.w *= f;
+    l *= f;
+#pragma unroll
+    for (int q = 0; q < kGroup; ++q) {
+      const float e = expf(ms[q] - mn);
+      acc.x += v[q].x * e;
+      acc.y += v[q].y * e;
+      acc.z += v[q].z * e;
+      acc.w += v[q].w * e;
+      l += ls[q] * e;
+    }
+    mx = mn;
+  }
+  __shared__ float sm[kMergeLanes][C4], sl[kMergeLanes][C4];
+  __shared__ float4 sa[kMergeLanes][C4];
+  sm[j][lane] = mx;
+  sl[j][lane] = l;
+  sa[j][lane] = acc;
+  __syncthreads();
+  if (j != 0) return;
+  float M = -INFINITY;
+#pragma unroll
+  for (int q = 0; q < kMergeLanes; ++q) M = fmaxf(M, sm[q][lane]);
+  float4 A = make_float4(0.f, 0.f, 0.f, 0.f);
+  float L = 0.f;
+#pragma unroll
+  for (int q = 0; q < kMergeLanes; ++q) {
+    const float e = sm[q][lane] == -INFINITY ? 0.f : expf(sm[q][lane] - M);
+    A.x += sa[q][lane].x * e;
+    A.y += sa[q][lane].y * e;
+    A.z += sa[q][lane].z * e;
+    A.w += sa[q][lane].w * e;
+    L += sl[q][lane] * e;
+  }
+  const float inv = 1.f / fmaxf(L, 1e-30f);
+  __nv_bfloat16* o = static_cast<__nv_bfloat16*>(a.out) + hrow * kLatV + slice * kSlice + 4 * lane;
+  *reinterpret_cast<uint32_t*>(o) = pack_bf16(A.x * inv, A.y * inv);
+  *reinterpret_cast<uint32_t*>(o + 2) = pack_bf16(A.z * inv, A.w * inv);
+}
+
+}  // namespace latent
+
 template <typename T, int HD, int CORE>
 __global__ void __launch_bounds__(kThreads)
 paged_attention_kernel(const Args a, int stages) {
+  if constexpr (CORE == kLatent) {
+    latent::split_kernel(a, stages);
+    return;
+  } else if constexpr (CORE == kMerge) {
+    latent::merge_kernel(a);
+    return;
+  } else {
   using S = Smem<T, HD, CORE>;
   constexpr int RS = S::RS;
   const int split = blockIdx.x, hb = blockIdx.y, b = blockIdx.z;
@@ -521,6 +850,7 @@ paged_attention_kernel(const Args a, int stages) {
     o[3] = from_float<T>(acc.w * inv);
   }
   if (tid == 0) *counter = 0;  // ready for the next launch
+  }
 }
 
 template <typename T, int HD, int CORE>
@@ -573,6 +903,41 @@ extern "C" int paged_attention_launch(const void* q, const void* k_pages,
   if (dtype == kFloat32) return dispatch_hd<float, kSimt>(hd, a, B, s);
   if (dtype == kBFloat16) return dispatch_hd<__nv_bfloat16, kMma>(hd, a, B, s);
   return cudaErrorInvalidValue;
+}
+
+// Latent mode: q (B, H, qk) bf16; pages (P, T, 1, qk) bf16 of one layer;
+// tables (B, N) int32; lengths (B,) int32; out (B, H, v); scratch part_acc
+// (B, H, splits, v) and part_m, part_l (B, H, splits) float32, with
+// split_tokens a multiple of T and splits * split_tokens >= N * T; (qk, v)
+// (576, 512) only.  Scores at `scale`.  Launches the split kernel, and with
+// more than one split the merge.  Returns the first cudaError_t (0 = success).
+extern "C" int paged_latent_launch(const void* q, const void* pages, const void* tables,
+                                   const void* lengths, void* out, void* part_acc,
+                                   void* part_m, void* part_l, int B, int H, int qk, int v,
+                                   int T_blk, int N, int split_tokens, int splits, float scale,
+                                   void* stream) {
+  if (B == 0) return cudaSuccess;
+  if (qk != kLatW || v != kLatV || H <= 0 || T_blk <= 0 || split_tokens <= 0 ||
+      split_tokens % T_blk ||
+      static_cast<long long>(splits) * split_tokens < static_cast<long long>(N) * T_blk)
+    return cudaErrorInvalidValue;
+  const int groups = (H + kRows - 1) / kRows;
+  Args a{q, pages, pages, static_cast<const int*>(tables), static_cast<const int*>(lengths),
+         out, static_cast<float*>(part_acc), static_cast<float*>(part_m),
+         static_cast<float*>(part_l), nullptr, H, 1, H, groups, T_blk, N, split_tokens, splits,
+         scale};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int stages = split_tokens > kChunk ? 2 : 1;
+  const size_t smem = latent::smem_bytes(stages, split_tokens / T_blk);
+  constexpr auto kernel = paged_attention_kernel<__nv_bfloat16, kLatW, kLatent>;
+  cudaError_t err = allow_smem<kernel>(smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3(splits, groups, B), kThreads, smem, s>>>(a, stages);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || splits == 1) return err;
+  paged_attention_kernel<__nv_bfloat16, kLatV, kMerge>
+      <<<dim3(kLatV / latent::kSlice, H, B), kThreads, 0, s>>>(a, 0);
+  return cudaGetLastError();
 }
 
 // A zeroed buffer of n int32 ticket counters on the current device, for

@@ -37,12 +37,24 @@ from repro_torch.kernels.ref import flash_attention_ref
 # head dims the kernel is instantiated for (RecurrentGemma's local attention
 # is hd 256; the paged decode kernel keeps its own, smaller set)
 HEAD_DIMS = (32, 64, 128, 256)
+# (q/k, v) widths of the split instances (bfloat16 only): latent attention's
+# prefill, DeepSeek-V2's 128 + 64 q/k and 128 v
+SPLIT_WIDTHS = ((192, 128),)
 
 
 @functools.lru_cache(maxsize=None)
 def _launcher():
     fn = build.library("flash_attention").flash_attention_launch
     fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _split_launcher():
+    fn = build.library("flash_attention").flash_attention_split_launch
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_int]
+                   + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
@@ -89,10 +101,46 @@ def _flash_flops(q_shape, k_shape, v_shape, causal, window, *args, **kwargs) -> 
     return 4 * B * H * hd * visible_pairs(S, causal, window)
 
 
-def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
-    """q: (B, S, H, hd); k, v: (B, S, K, hd). Returns (B, S, H, hd)."""
+def _launch_split(q, k, v, causal: bool, window: int, scale: float):
+    """The split-width instance: q/k and v widths of `SPLIT_WIDTHS`, scores
+    at `scale`."""
+    B, S, H, hd = q.shape
+    check_cuda_inputs({"q": q, "k": k, "v": v}, {"q": (torch.bfloat16,), "k": (q.dtype,),
+                                                  "v": (q.dtype,)})
+    out = torch.empty((B, S, H, v.shape[-1]), dtype=q.dtype, device=q.device)
+    err = _split_launcher()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                            B, S, H, k.shape[2], hd, v.shape[-1], int(causal), int(window),
+                            scale, DTYPE_CODES[q.dtype],
+                            torch.cuda.current_stream(q.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"flash_attention launch failed: cudaError {err}")
+    flash_attention.launches += 1
+    flash_attention.split_launches += 1
+    return out
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
+                    scale: float | None = None):
+    """q: (B, S, H, hd); k: (B, S, K, hd); v: (B, S, K, hv).  Returns
+    (B, S, H, hv).  hv is hd, scored at 1/sqrt(hd), but at the split widths
+    (`SPLIT_WIDTHS`, latent attention's prefill), which take their `scale`
+    and count in `flash_attention.split_launches` too."""
     if q.device.type == "cpu":
-        return flash_attention_ref(q, k, v, causal=causal, window=window)
+        return flash_attention_ref(q, k, v, causal=causal, window=window, scale=scale)
+    if v.shape[-1] != q.shape[-1] or scale is not None:
+        B, S, H, hd = q.shape
+        if (hd, v.shape[-1]) not in SPLIT_WIDTHS or scale is None:
+            raise ValueError(f"(q/k, v) widths ({hd}, {v.shape[-1]}) with scale {scale}: "
+                             f"split widths are {SPLIT_WIDTHS}, each with its scale")
+        K = k.shape[2]
+        if tuple(k.shape) != (B, S, K, hd) or tuple(v.shape[:3]) != (B, S, K) or H % K:
+            raise ValueError(f"shape mismatch: q {tuple(q.shape)}, k {tuple(k.shape)}, "
+                             f"v {tuple(v.shape)}")
+        check_no_autograd("flash_attention", {"q": q, "k": k, "v": v})
+        if not is_concrete_cuda(q):
+            raise ValueError("the split-width flash attention launches on plain CUDA "
+                             "tensors only")
+        return _launch_split(q, k, v, bool(causal), int(window), float(scale))
     if q.device.type not in ("cuda", "meta"):  # meta: shapes only, through the fake
         raise ValueError(f"no flash_attention for device {q.device}")
     B, S, H, hd = q.shape
@@ -110,3 +158,4 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
 
 
 flash_attention.launches = 0
+flash_attention.split_launches = 0

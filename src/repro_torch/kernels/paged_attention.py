@@ -36,7 +36,7 @@ import torch
 from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import build
-from repro_torch.kernels.ref import paged_attention_ref
+from repro_torch.kernels.ref import paged_attention_ref, paged_latent_attention_ref
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (32, 64, 128)
@@ -44,6 +44,11 @@ ROWS = 16  # query rows of a block: one mma tile; G > 16 takes several blocks a 
 BLOCKS_PER_SM = 4  # the split plan's ceiling: blocks a full table may launch, per SM
 MAX_SPLITS = 32  # the split plan's ceiling: partials the last block of a sequence merges
 COUNTERS_MIN = 4096  # ticket counters allocated at first use
+# latent mode (MLA decode): the (q/k, v) widths of its one instance, and the
+# blocks a full table launches per SM (one kv head: the splits are the grid)
+LATENT_WIDTHS = (576, 512)
+LATENT_BLOCKS_PER_SM = 2
+LATENT_CHUNK = 64  # tokens a ring stage of the latent mode holds
 
 
 def row_groups(G: int) -> int:
@@ -69,6 +74,19 @@ def split_plan(B: int, K: int, N: int, T: int, sms: int) -> tuple[int, int]:
     return pages * T, -(-N // pages)
 
 
+def latent_split_plan(B: int, groups: int, N: int, T: int, sms: int) -> tuple[int, int]:
+    """(split_tokens, splits) of the latent mode's grid: one kv head, so a
+    sequence's splits are what fills the card.  A full table of N pages
+    launches about LATENT_BLOCKS_PER_SM blocks an SM (at least one ring
+    stage of tokens a split); a sequence at half its table's capacity
+    keeps about one block on each SM.  The partials merge in a second
+    kernel, over the live splits in parallel, so their number has no
+    ceiling.  Fixed by the static shapes, as `split_plan`."""
+    most = max(1, LATENT_BLOCKS_PER_SM * sms // (B * groups))
+    pages = max(-(-N // most), min(N, -(-LATENT_CHUNK // T)))
+    return pages * T, -(-N // pages)
+
+
 def split_scratch_shapes(B: int, H: int, hd: int, splits: int) -> dict[str, tuple]:
     """Shapes of the float32 scratch of one call: each split's unnormalised
     P.V row and its softmax max and sum, per (sequence, query head)."""
@@ -85,6 +103,15 @@ def _launcher():
     alloc.argtypes = [ctypes.c_int, ctypes.c_void_p]
     alloc.restype = ctypes.c_void_p
     return fn, alloc
+
+
+@functools.lru_cache(maxsize=None)
+def _latent_launcher():
+    fn = build.library("paged_attention").paged_latent_launch
+    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [ctypes.c_float]
+                   + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
 
 
 @functools.lru_cache(maxsize=None)
@@ -231,3 +258,63 @@ def paged_attention(q, k_pages, v_pages, block_tables, lengths):
 
 
 paged_attention.launches = 0
+
+
+def _launch_latent(q, pages, block_tables, lengths, v_dim: int, scale: float):
+    """Check the operands and launch the latent mode on the current stream:
+    the split kernel, and where the plan has several splits the merge."""
+    B, H, W = q.shape
+    P, T, _, _ = pages.shape
+    N = block_tables.shape[1]
+    check_cuda_inputs(
+        {"q": q, "pages": pages, "block_tables": block_tables, "lengths": lengths},
+        {"q": (torch.bfloat16,), "pages": (torch.bfloat16,),
+         "block_tables": (torch.int32,), "lengths": (torch.int32,)})
+    split_tokens, splits = latent_split_plan(B, row_groups(H), N, T, _sm_count(q.device))
+    part = {name: torch.empty(shape, dtype=torch.float32, device=q.device)
+            for name, shape in split_scratch_shapes(B, H, v_dim, splits).items()}
+    out = torch.empty((B, H, v_dim), dtype=q.dtype, device=q.device)
+    err = _latent_launcher()(q.data_ptr(), pages.data_ptr(), block_tables.data_ptr(),
+                             lengths.data_ptr(), out.data_ptr(), part["acc"].data_ptr(),
+                             part["m"].data_ptr(), part["l"].data_ptr(), B, H, W, v_dim, T, N,
+                             split_tokens, splits, scale,
+                             torch.cuda.current_stream(q.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"paged latent attention launch failed: cudaError {err}")
+    paged_attention.launches += 1
+    paged_attention.latent_launches += 1
+    return out
+
+
+def paged_latent_attention(q, pages, block_tables, lengths, *, v_dim: int, scale: float):
+    """K1's latent mode, the decode attention of absorbed MLA: q (B, H, W)
+    against one latent head of pages (P, T, 1, W), V the first `v_dim`
+    columns of the same rows, scores at `scale` -> (B, H, v_dim).
+
+    A CPU tensor runs the plain version (`ref.paged_latent_attention_ref`);
+    a CUDA tensor launches the kernel's latent instance (bfloat16 at
+    `LATENT_WIDTHS` alone; the source note of `csrc/paged_attention.cu` has
+    its design), or raises.  Counted in `paged_attention.launches` and in
+    `paged_attention.latent_launches`."""
+    if q.device.type == "cpu":
+        return paged_latent_attention_ref(q, pages, block_tables, lengths, v_dim=v_dim,
+                                          scale=scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"no paged latent attention for device {q.device}")
+    B, H, W = q.shape
+    P, T, K, W_p = pages.shape
+    N = block_tables.shape[1]
+    if (K != 1 or W_p != W or tuple(block_tables.shape) != (B, N)
+            or tuple(lengths.shape) != (B,)):
+        raise ValueError(
+            f"shape mismatch: q {tuple(q.shape)}, pages {tuple(pages.shape)}, "
+            f"tables {tuple(block_tables.shape)}, lengths {tuple(lengths.shape)}")
+    if (W, v_dim) != LATENT_WIDTHS:
+        raise ValueError(f"latent widths ({W}, {v_dim}) are not {LATENT_WIDTHS}")
+    check_no_autograd("paged_latent_attention", {"q": q, "pages": pages})
+    if not is_concrete_cuda(q):
+        raise ValueError("paged latent attention launches on plain CUDA tensors only")
+    return _launch_latent(q, pages, block_tables, lengths, v_dim, float(scale))
+
+
+paged_attention.latent_launches = 0

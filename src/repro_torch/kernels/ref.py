@@ -52,17 +52,42 @@ def paged_attention_ref(q, k_pages, v_pages, block_tables, lengths):
     return o.reshape(B, H, hd)
 
 
-def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0):
+def paged_latent_attention_ref(q, pages, block_tables, lengths, *, v_dim: int,
+                               scale: float):
+    """Latent-mode decode attention over paged latent rows (absorbed MLA).
+
+    q:            (B, H, W)         the absorbed queries [q_lat | q_pe]
+    pages:        (P, T, 1, W)      one layer's latent rows [c | k_pe]: K, and
+                                    their first `v_dim` columns V
+    block_tables: (B, N) int32      physical block ids per sequence
+    lengths:      (B,) int32        context length (tokens) per sequence
+    Scores at `scale`.  Returns (B, H, v_dim).
+    """
+    B, H, W = q.shape
+    P, T, _, _ = pages.shape
+    N = block_tables.shape[1]
+    rows = pages[block_tables.long()].reshape(B, N * T, W)
+    s = torch.einsum("bhw,btw->bht", q.to(F32), rows.to(F32)) * scale
+    pos = torch.arange(N * T, device=q.device)[None, None, :]
+    s = s.masked_fill(~(pos < lengths.to(q.device)[:, None, None]), float("-inf"))
+    p = _softmax_zero_masked(s)
+    return torch.einsum("bht,btv->bhv", p.to(q.dtype), rows[..., :v_dim])
+
+
+def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
+                        scale: float | None = None):
     """Full-sequence attention with causal + sliding-window masking.
 
-    q: (B, S, H, hd); k, v: (B, S, K, hd) (GQA: H = K * G). Returns q-shaped.
+    q: (B, S, H, hd); k: (B, S, K, hd); v: (B, S, K, hv) (GQA: H = K * G; hv
+    is hd but for latent attention's prefill).  `scale` defaults to
+    1/sqrt(hd).  Returns (B, S, H, hv).
     """
     B, S, H, hd = q.shape
     K = k.shape[2]
     G = H // K
     qq = q.reshape(B, S, K, G, hd)
     s = torch.einsum("bskgh,btkh->bkgst", qq.to(F32), k.to(F32))
-    s = s * (1.0 / math.sqrt(hd))
+    s = s * (1.0 / math.sqrt(hd) if scale is None else scale)
     qp = torch.arange(S, device=q.device)[:, None]
     kp = torch.arange(S, device=q.device)[None, :]
     mask = torch.ones((S, S), dtype=torch.bool, device=q.device)
@@ -73,7 +98,7 @@ def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0):
     s = s.masked_fill(~mask, float("-inf"))
     p = _softmax_zero_masked(s)
     o = torch.einsum("bkgst,btkh->bskgh", p.to(q.dtype), v)
-    return o.reshape(B, S, H, hd)
+    return o.reshape(B, S, H, v.shape[-1])
 
 
 def moe_experts_ref(x, ids, w, keep, wg, wu, wd):

@@ -57,6 +57,50 @@ def rope_freqs(head_dim: int, theta: float, device) -> torch.Tensor:
     return 1.0 / (theta ** exps)
 
 
+def _yarn_correction_dim(rotations: float, dim: int, base: float, max_pos: int) -> float:
+    return (dim * math.log(max_pos / (rotations * 2 * math.pi))) / (2 * math.log(base))
+
+
+def yarn_mscale(scale: float, mscale: float) -> float:
+    """YaRN's attention-temperature factor 0.1 mscale ln(scale) + 1 (1 where
+    scale <= 1)."""
+    return 1.0 if scale <= 1 else 0.1 * mscale * math.log(scale) + 1.0
+
+
+def yarn_freqs(dim: int, cfg, device) -> torch.Tensor:
+    """YaRN's inverse frequencies (DeepSeek-V2's `DeepseekV2YarnRotaryEmbedding`):
+    the plain ones extrapolated above the correction range found from
+    `yarn_beta_fast` / `yarn_beta_slow` at `yarn_original_max_pos`,
+    interpolated (divided by `yarn_factor`) below it, and blended by a
+    linear ramp across it."""
+    base = cfg.rope_theta
+    exps = torch.arange(0, dim // 2, dtype=F32, device=device) * 2.0 / dim
+    extra = 1.0 / (base ** exps)
+    inter = 1.0 / (cfg.yarn_factor * base ** exps)
+    lo = math.floor(_yarn_correction_dim(cfg.yarn_beta_fast, dim, base, cfg.yarn_original_max_pos))
+    hi = math.ceil(_yarn_correction_dim(cfg.yarn_beta_slow, dim, base, cfg.yarn_original_max_pos))
+    lo, hi = max(lo, 0), min(hi, dim - 1)
+    ramp = ((torch.arange(dim // 2, dtype=F32, device=device) - lo) / max(hi - lo, 0.001)
+            ).clamp(0, 1)
+    keep = 1.0 - ramp  # 1: extrapolate (high frequencies), 0: interpolate
+    return inter * (1 - keep) + extra * keep
+
+
+def yarn_rope_scale(cfg) -> float:
+    """The factor on cos and sin: mscale(factor, yarn_mscale) over
+    mscale(factor, yarn_mscale_all_dim); 1.0 at DeepSeek-V2-Lite's equal pair."""
+    return (yarn_mscale(cfg.yarn_factor, cfg.yarn_mscale)
+            / yarn_mscale(cfg.yarn_factor, cfg.yarn_mscale_all_dim))
+
+
+def deinterleave(x: torch.Tensor) -> torch.Tensor:
+    """The last axis's pairs (x0, x1), (x2, x3), ... regrouped as (x0, x2,
+    ..., x1, x3, ...): DeepSeek-V2 rotates interleaved pairs, which the
+    rotate-half convention reaches after this permutation."""
+    *lead, d = x.shape
+    return x.reshape(*lead, d // 2, 2).transpose(-1, -2).reshape(*lead, d)
+
+
 def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
                mrope_sections: tuple[int, ...] = ()) -> torch.Tensor:
     """Rotary embedding.
@@ -100,12 +144,14 @@ def _masked_softmax(scores: torch.Tensor) -> torch.Tensor:
     return torch.nan_to_num(probs, nan=0.0)
 
 
-def _masked_scores(q, k, *, causal: bool, window: int, q_positions, kv_positions, kv_valid):
+def _masked_scores(q, k, *, causal: bool, window: int, q_positions, kv_positions, kv_valid,
+                   scale: Optional[float] = None):
     """(B, K, G, S, T) fp32 scaled scores of q (B, S, H, hd) against k
     (B, T, K, hd), -inf where masked (see `attention_dense`)."""
     B, S, H, hd = q.shape
     T, K = k.shape[1], k.shape[2]
-    scale = 1.0 / math.sqrt(hd)
+    if scale is None:
+        scale = 1.0 / math.sqrt(hd)
     scores = _gqa_scores(q.reshape(B, S, K, H // K, hd), k) * scale  # (B,K,G,S,T) fp32
 
     if q_positions is None:
@@ -125,19 +171,21 @@ def _masked_scores(q, k, *, causal: bool, window: int, q_positions, kv_positions
 
 
 def attention_dense(q, k, v, *, causal: bool, window: int = 0,
-                    q_positions=None, kv_positions=None, kv_valid=None):
+                    q_positions=None, kv_positions=None, kv_valid=None,
+                    scale: Optional[float] = None):
     """Reference dense attention with GQA, causal and sliding-window masking.
 
-    q: (B, S, H, hd); k, v: (B, T, K, hd).  positions default to arange.
-    kv_valid: optional (B, T) bool — entries that hold real tokens (decode ring).
-    Returns (B, S, H, hd) in q.dtype.
+    q: (B, S, H, hd); k: (B, T, K, hd); v: (B, T, K, hv) (hv is hd but for
+    latent attention).  positions default to arange.  kv_valid: optional
+    (B, T) bool — entries that hold real tokens (decode ring).  `scale`
+    defaults to 1/sqrt(hd).  Returns (B, S, H, hv) in q.dtype.
     """
     B, S, H, hd = q.shape
     scores = _masked_scores(q, k, causal=causal, window=window, q_positions=q_positions,
-                            kv_positions=kv_positions, kv_valid=kv_valid)
+                            kv_positions=kv_positions, kv_valid=kv_valid, scale=scale)
     probs = _masked_softmax(scores)  # fully-masked rows -> 0
     out = torch.einsum("bkgst,btkh->bskgh", probs.to(q.dtype), v)
-    return out.reshape(B, S, H, hd)
+    return out.reshape(B, S, H, v.shape[-1])
 
 
 def attention_partial(q, k, v, *, causal: bool, window: int = 0,

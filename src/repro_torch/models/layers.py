@@ -72,6 +72,7 @@ class SeqCtx:
     moe_capacity_factor: float = PREFILL_CAPACITY_FACTOR
     moe_impl: str = "scatter"  # scatter | grouped | gshard
     moe_ep_axis: str = ""  # mesh axis for expert-parallel constraints (gshard)
+    rope_table: Optional[tuple] = None  # latent attention's (cos, sin), made at first use
 
 
 def kv_capacity(cfg: ModelConfig, kind: str, cache_cap: int) -> int:
@@ -124,6 +125,8 @@ def attention_forward(p, x, cfg: ModelConfig, ctx: SeqCtx, kind: str):
     reference's plain attention (the loss), as `ctx.kernel_attention` says."""
     if ctx.kernel_attention and not ctx.arange_positions:
         raise ValueError("prefill attention requires positions == arange(S)")
+    if cfg.is_mla:
+        return mla_forward(p, x, cfg, ctx)
     q, k, v = _project_qkv(p, x, cfg)
     rope_pos = ctx.mrope_positions if cfg.mrope_sections else ctx.positions
     q = common.apply_rope(q, rope_pos, cfg.rope_theta, cfg.mrope_sections)
@@ -191,6 +194,8 @@ def attention_decode(p, x, cache, cfg: ModelConfig, ctx: SeqCtx, kind: str):
     """Single-token decode over the ring cache. x: (B, 1, D); ctx.positions:
     (B, 1) current pos.  Returns a new cache (the input cache is untouched,
     as in the reference)."""
+    if cfg.is_mla:
+        return mla_decode(p, x, cache, cfg, ctx)
     q, k, v = _project_qkv(p, x, cfg)
     pos = ctx.positions  # (B, 1)
     rope_pos = ctx.mrope_positions if cfg.mrope_sections else pos
@@ -219,11 +224,165 @@ def attention_cache_spec(cfg: ModelConfig, kind: str, batch: int, cap: int):
     cap = kv_capacity(cfg, kind, cap)
     K, hd = cfg.num_kv_heads, cfg.resolved_head_dim
     dt = cfg.torch_dtype
+    if cfg.is_mla:
+        return {"ckv": ((batch, cap, cfg.latent_width), dt),
+                "kv_pos": ((batch, cap), torch.int32)}
     return {
         "k": ((batch, cap, K, hd), dt),
         "v": ((batch, cap, K, hd), dt),
         "kv_pos": ((batch, cap), torch.int32),
     }
+
+
+# ==================================================== latent attention (MLA)
+# DeepSeek-V2's multi-head latent attention, without q LoRA (V2-Lite):
+#   q = x wq                  (H, dn + dr): [q_nope | q_pe]
+#   [c | k_pe] = x wkv_a      c (r), k_pe (dr, one for every head)
+#   c = RMSNorm(c)            its own scale, eps 1e-6
+#   [k_nope | v] = c wkv_b    (H, dn + dv)
+#   q_pe, k_pe roped (YaRN where configured), scores over [q_nope | q_pe] .
+#   [k_nope | k_pe] at `mla_softmax_scale`, o = softmax . v, y = o wo.
+# A token's cache is its latent row [c | k_pe] (r + dr values a layer).  The
+# prefill computes the equations as written (the flash kernel at q/k width
+# dn + dr and v width dv); a decode step the absorbed form of the same
+# function: q_lat = q_nope W_UK (per head dn -> r) attends over the cached
+# rows with the query [q_lat | q_pe], V their first r columns, and the
+# output o_lat W_UV (r -> dv) goes through wo.
+LATENT_NORM_EPS = 1e-6
+
+
+def init_mla(gen, cfg: ModelConfig, device):
+    d, H, r = cfg.d_model, cfg.num_heads, cfg.kv_lora_rank
+    dn, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+    dt = cfg.torch_dtype
+    return {
+        "wq": uniform_scaled(gen, (d, H, dn + dr), dt, d, device),
+        "wkv_a": uniform_scaled(gen, (d, r + dr), dt, d, device),
+        "kv_norm": torch.zeros((r,), dtype=torch.float32, device=device),
+        "wkv_b": uniform_scaled(gen, (r, H, dn + dv), dt, r, device),
+        "wo": uniform_scaled(gen, (H, dv, d), dt, H * dv, device),
+    }
+
+
+def mla_softmax_scale(cfg: ModelConfig) -> float:
+    """(dn + dr)^-1/2, times mscale(factor, mscale_all_dim)^2 under YaRN."""
+    scale = cfg.qk_head_dim ** -0.5
+    if cfg.yarn_factor and cfg.yarn_mscale_all_dim:
+        m = common.yarn_mscale(cfg.yarn_factor, cfg.yarn_mscale_all_dim)
+        scale = scale * m * m
+    return scale
+
+
+def mla_rope_table(positions: torch.Tensor, cfg: ModelConfig) -> tuple:
+    """(cos, sin), each (B, S, 1, dr / 2), of the rotary embedding at
+    positions (B, S): YaRN's frequencies and cos/sin factor where
+    configured.  Every layer of a call shares them."""
+    dr = cfg.qk_rope_head_dim
+    yarn = cfg.yarn_factor > 0
+    inv = (common.yarn_freqs(dr, cfg, positions.device) if yarn
+           else common.rope_freqs(dr, cfg.rope_theta, positions.device))
+    angles = positions.to(F32)[..., None] * inv
+    cos, sin = torch.cos(angles)[..., None, :], torch.sin(angles)[..., None, :]
+    if yarn and common.yarn_rope_scale(cfg) != 1.0:
+        cos, sin = cos * common.yarn_rope_scale(cfg), sin * common.yarn_rope_scale(cfg)
+    return cos, sin
+
+
+def mla_rope(x: torch.Tensor, table: tuple) -> torch.Tensor:
+    """Rotary embedding of x (B, S, h, dr) by `mla_rope_table`'s (cos, sin):
+    its interleaved pairs regrouped (`common.deinterleave`), then rotated
+    half against half, as `common.apply_rope` does."""
+    cos, sin = table
+    x1, x2 = torch.chunk(common.deinterleave(x).to(F32), 2, dim=-1)
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
+
+
+def mla_project(p, x, cfg: ModelConfig, table: tuple):
+    """(q, latent) of x (B, S, D): q (B, S, H, dn + dr) with q_pe roped, and
+    each token's cache row (B, S, r + dr), [normed c | roped k_pe]; `table`
+    is the call's `mla_rope_table`."""
+    r, dn = cfg.kv_lora_rank, cfg.qk_nope_head_dim
+    q = _proj(x, p["wq"])
+    ckv = x @ p["wkv_a"]
+    c = rms_norm(ckv[..., :r], p["kv_norm"], LATENT_NORM_EPS)
+    k_pe = mla_rope(ckv[..., None, r:], table)[..., 0, :]
+    q = torch.cat([q[..., :dn], mla_rope(q[..., dn:], table)], dim=-1)
+    return q, torch.cat([c, k_pe], dim=-1)
+
+
+def mla_absorb_q(q: torch.Tensor, wkv_b: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """The absorbed query (B, S, H, r + dr): [q_nope W_UK | q_pe], one
+    batched product over the heads on views of wkv_b (no copy)."""
+    B, S, H, _ = q.shape
+    dn = cfg.qk_nope_head_dim
+    qn = q[..., :dn].reshape(B * S, H, dn).transpose(0, 1)  # (H, BS, dn)
+    q_lat = torch.bmm(qn, wkv_b[:, :, :dn].permute(1, 2, 0))  # (H, BS, r)
+    return torch.cat([q_lat.transpose(0, 1).reshape(B, S, H, -1), q[..., dn:]], dim=-1)
+
+
+def mla_expand_o(o_lat: torch.Tensor, wkv_b: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """The heads' outputs (B, S, H, dv) from the latent ones (B, S, H, r):
+    o_lat W_UV per head."""
+    B, S, H, r = o_lat.shape
+    dn = cfg.qk_nope_head_dim
+    o = torch.bmm(o_lat.reshape(B * S, H, r).transpose(0, 1),
+                  wkv_b[:, :, dn:].permute(1, 0, 2))  # (H, BS, dv)
+    return o.transpose(0, 1).reshape(B, S, H, -1)
+
+
+def _fill_latent_cache(lat, positions, cap: int):
+    """The last `cap` latent rows in a ring keyed by pos % cap."""
+    B, S, W = lat.shape
+    take = min(S, cap)
+    pt = positions[:, -take:]
+    b_idx = torch.arange(B, device=lat.device)[:, None]
+    ckv = torch.zeros((B, cap, W), dtype=lat.dtype, device=lat.device)
+    pos_c = torch.full((B, cap), -1, dtype=torch.int32, device=lat.device)
+    ckv[b_idx, (pt % cap).long()] = lat[:, -take:]
+    pos_c[b_idx, (pt % cap).long()] = pt.to(torch.int32)
+    return {"ckv": ckv, "kv_pos": pos_c}
+
+
+def mla_forward(p, x, cfg: ModelConfig, ctx: SeqCtx):
+    """Full-sequence MLA as published (un-absorbed): the flash kernel at q/k
+    width dn + dr and v width dv, or the plain attention (the loss)."""
+    if ctx.attn_chunked:
+        raise ValueError("latent attention has no blockwise plain route")
+    B, S, _ = x.shape
+    H, r = cfg.num_heads, cfg.kv_lora_rank
+    dn, dr = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
+    if ctx.rope_table is None:
+        ctx.rope_table = mla_rope_table(ctx.positions, cfg)
+    q, lat = mla_project(p, x, cfg, ctx.rope_table)
+    kv = _proj(lat[..., :r], p["wkv_b"])  # (B, S, H, dn + dv)
+    k = torch.cat([kv[..., :dn], lat[:, :, None, r:].expand(B, S, H, dr)], dim=-1)
+    v = kv[..., dn:].contiguous()
+    scale = mla_softmax_scale(cfg)
+    if ctx.kernel_attention:
+        o = kops.flash_attention(q, k, v, causal=True, scale=scale)
+    else:
+        o = common.attention_dense(q, k, v, causal=True, q_positions=ctx.positions,
+                                   kv_positions=ctx.positions, scale=scale)
+    y = _out_proj(o, p["wo"])
+    cache = _fill_latent_cache(lat, ctx.positions, ctx.cache_cap) if ctx.make_cache else None
+    return y, cache
+
+
+def mla_decode(p, x, cache, cfg: ModelConfig, ctx: SeqCtx):
+    """One token of MLA over the latent ring, in the absorbed form."""
+    r = cfg.kv_lora_rank
+    pos = ctx.positions  # (B, 1)
+    if ctx.rope_table is None:
+        ctx.rope_table = mla_rope_table(pos, cfg)
+    q, lat = mla_project(p, x, cfg, ctx.rope_table)
+    ckv = slot_write(cache["ckv"], lat[:, 0], pos[:, 0])
+    kv_pos = slot_write(cache["kv_pos"], pos[:, 0].to(torch.int32), pos[:, 0])
+    o_lat = common.attention_dense(mla_absorb_q(q, p["wkv_b"], cfg), ckv[:, :, None],
+                                   ckv[:, :, None, :r], causal=False, q_positions=pos,
+                                   kv_positions=kv_pos, kv_valid=kv_pos >= 0,
+                                   scale=mla_softmax_scale(cfg))
+    y = _out_proj(mla_expand_o(o_lat, p["wkv_b"], cfg), p["wo"])
+    return y, {"ckv": ckv, "kv_pos": kv_pos}
 
 
 # ==================================================================== dense MLP
@@ -245,12 +404,26 @@ def mlp_forward(p, x):
 def init_moe(gen, cfg: ModelConfig, device):
     d, fe, E = cfg.d_model, cfg.expert_ff, cfg.num_experts
     dt = cfg.torch_dtype
-    return {
+    p = {
         "router": uniform_scaled(gen, (d, E), torch.float32, d, device),
         "wg": uniform_scaled(gen, (E, d, fe), dt, d, device),
         "wu": uniform_scaled(gen, (E, d, fe), dt, d, device),
         "wd": uniform_scaled(gen, (E, fe, d), dt, fe, device),
     }
+    if cfg.num_shared_experts:  # DeepSeek's shared experts: one SwiGLU of n * fe
+        fs = cfg.num_shared_experts * fe
+        p["shared_wg"] = uniform_scaled(gen, (d, fs), dt, d, device)
+        p["shared_wu"] = uniform_scaled(gen, (d, fs), dt, d, device)
+        p["shared_wd"] = uniform_scaled(gen, (fs, d), dt, fs, device)
+    return p
+
+
+def shared_experts(p, x):
+    """The shared experts' SwiGLU, which every token takes (None where the
+    MoE layer has none)."""
+    if "shared_wg" not in p:
+        return None
+    return common.swiglu(x, p["shared_wg"], p["shared_wu"], p["shared_wd"])
 
 
 def moe_capacity(tokens: int, k: int, experts: int, capacity_factor: float) -> int:
@@ -261,14 +434,17 @@ def moe_capacity(tokens: int, k: int, experts: int, capacity_factor: float) -> i
     return max(8, -(-cap // 8) * 8)
 
 
-def route(xf: torch.Tensor, router: torch.Tensor, k: int):
+def route(xf: torch.Tensor, router: torch.Tensor, k: int, norm: bool = True):
     """Top-k expert choice of each token, xf (..., D): fp32 router logits,
-    softmax, `torch.topk`, weights renormalised over the k choices.
+    softmax, `torch.topk`, weights renormalised over the k choices where
+    `norm` (the configuration's `norm_topk_prob`), else the softmax's own.
     `torch.topk` orders equal probabilities as it likes; the reference's
     `jax.lax.top_k` puts the lower expert first, so the two agree wherever
     the top-k probabilities do not tie.  Returns (w, idx), each (..., k)."""
     probs = torch.softmax(xf.to(F32) @ router, dim=-1)
     w, idx = torch.topk(probs, k, dim=-1)
+    if not norm:
+        return w, idx
     return w / torch.clamp(w.sum(-1, keepdim=True), min=1e-9), idx
 
 
@@ -279,12 +455,33 @@ def _one_hot(idx: torch.Tensor, n: int, dtype: torch.dtype) -> torch.Tensor:
     return (idx[..., None] == torch.arange(n, device=idx.device)).to(dtype)
 
 
-def _slots(flat_e: torch.Tensor, experts: int, cap: int, dim: int):
-    """Slot of each (token, choice) pair in its expert: the running count of
-    earlier pairs routed there along `dim` (a cumsum over the one-hot),
-    or `cap` once the expert is full.  Returns (slot, keep)."""
+def _running_counts(flat_e: torch.Tensor, experts: int, inner: bool) -> torch.Tensor:
+    """Per pair, the count of earlier pairs along flat_e's last axis routed
+    to its expert (a cumsum over the one-hot), with the one-hot laid out
+    (..., experts, pairs) where `inner`, else (..., pairs, experts)."""
+    if inner:
+        onehot = (flat_e.unsqueeze(-2)
+                  == torch.arange(experts, device=flat_e.device)[:, None]).to(torch.int32)
+        return (torch.cumsum(onehot, dim=-1) * onehot).sum(-2) - 1
     onehot = _one_hot(flat_e, experts, torch.int32)
-    pos = (torch.cumsum(onehot, dim=dim) * onehot).sum(-1) - 1
+    return (torch.cumsum(onehot, dim=-2) * onehot).sum(-1) - 1
+
+
+def _slots(flat_e: torch.Tensor, experts: int, cap: int):
+    """Slot of each (token, choice) pair in its expert: the running count of
+    earlier pairs routed there along flat_e's last axis, or `cap` once the
+    expert is full.  Returns (slot, keep).
+
+    From half as many pairs as experts the one-hot is laid out (experts,
+    pairs), so its cumsum runs along the contiguous axis: over (pairs,
+    experts) it scans the expert columns one row at a time, 38 ms a MoE
+    layer at 98,304 pairs x 64 experts (a 16k-token prompt of
+    DeepSeek-V2-Lite), 0.32 ms laid out (experts, pairs).  Below that, as
+    in a decode step, (pairs, experts) is the faster.  Measured on an H100
+    by `scripts/slots_scan_sweep.py`: (experts, pairs) is faster from 32
+    pairs at 64 experts and from 64 at 128; at 8 experts from 16, and
+    within 0.4 us of the other at 6 and 8."""
+    pos = _running_counts(flat_e, experts, 2 * flat_e.shape[-1] >= experts)
     keep = pos < cap
     return torch.where(keep, pos, cap), keep
 
@@ -332,9 +529,9 @@ def _dispatch(p, x, cfg: ModelConfig, capacity_factor: float):
     E, k = cfg.num_experts, cfg.experts_per_token
     T = B * S
     xf = x.reshape(T, D)
-    w, idx = route(xf, p["router"], k)  # (T, k)
+    w, idx = route(xf, p["router"], k, cfg.norm_topk_prob)  # (T, k)
     cap = moe_capacity(T, k, E, capacity_factor)
-    slot, keep = _slots(idx.reshape(-1), E, cap, dim=0)
+    slot, keep = _slots(idx.reshape(-1), E, cap)
     return xf, w, idx, slot, keep, cap
 
 
@@ -432,10 +629,10 @@ def moe_forward_gshard(p, x, cfg: ModelConfig, capacity_factor: float,
     # routed as (B, S, D), as the reference routes (the gradient of a
     # (B*S, D) view of a batch-sharded DTensor would come back sharded over
     # every mesh dim, which B cannot unflatten)
-    w, idx = route(x, p["router"], k)  # (B, S, k)
+    w, idx = route(x, p["router"], k, cfg.norm_topk_prob)  # (B, S, k)
 
     cap = moe_capacity(S, k, E, capacity_factor)
-    slot, _ = _slots(idx.reshape(B, S * k), E, cap, dim=1)  # (B, S*k)
+    slot, _ = _slots(idx.reshape(B, S * k), E, cap)  # (B, S*k)
     onehot_e = _one_hot(idx, E, x.dtype)
     pos_oh = _one_hot(slot.view(B, S, k), cap + 1, x.dtype)[..., :cap]  # overflow -> zeros
 
@@ -460,11 +657,11 @@ def moe_forward_grouped(p, x, cfg: ModelConfig, capacity_factor: float):
     dispatch's sync-free idiom over a (E, B, cap + 1, D) buffer."""
     B, S, D = x.shape
     E, k = cfg.num_experts, cfg.experts_per_token
-    w, idx = route(x.reshape(B * S, D), p["router"], k)
+    w, idx = route(x.reshape(B * S, D), p["router"], k, cfg.norm_topk_prob)
 
     cap = moe_capacity(S, k, E, capacity_factor)
     flat_e = idx.reshape(B, S * k)
-    slot, keep = _slots(flat_e, E, cap, dim=1)  # (B, S*k)
+    slot, keep = _slots(flat_e, E, cap)  # (B, S*k)
     b_idx = torch.arange(B, device=x.device)[:, None]
     row = ((flat_e * B + b_idx) * (cap + 1) + slot).reshape(-1)
 
@@ -481,12 +678,16 @@ def moe_forward_grouped(p, x, cfg: ModelConfig, capacity_factor: float):
 
 
 # ============================================================== transformer block
-def init_block(gen, cfg: ModelConfig, kind: str, device):
+def init_block(gen, cfg: ModelConfig, kind: str, device, moe: Optional[bool] = None):
+    """A transformer block; `moe` picks its MLP (default: the config's kind;
+    a leading dense layer of a MoE model passes False)."""
+    moe = cfg.is_moe if moe is None else moe
     return {
         "ln1": torch.zeros((cfg.d_model,), dtype=torch.float32, device=device),
-        "attn": init_attention(gen, cfg, kind, device),
+        "attn": (init_mla(gen, cfg, device) if cfg.is_mla
+                 else init_attention(gen, cfg, kind, device)),
         "ln2": torch.zeros((cfg.d_model,), dtype=torch.float32, device=device),
-        "mlp": (init_moe if cfg.is_moe else init_mlp)(gen, cfg, device),
+        "mlp": (init_moe if moe else init_mlp)(gen, cfg, device),
     }
 
 
@@ -499,9 +700,16 @@ def _moe_dispatch(pm, h, cfg: ModelConfig, ctx: SeqCtx, cf: float):
 
 
 def _mlp(p, h, cfg: ModelConfig, ctx: SeqCtx):
-    if cfg.is_moe:
-        return _moe_dispatch(p["mlp"], h, cfg, ctx, ctx.moe_capacity_factor)
-    return mlp_forward(p["mlp"], h)
+    """A block's MLP over h: the dense SwiGLU where its params have no router
+    (every layer of a dense model, a MoE model's leading dense layers), else
+    the routed experts (the dispatch `ctx.moe_impl` names) plus the shared
+    experts where the layer has them."""
+    pm = p["mlp"]
+    if "router" not in pm:
+        return mlp_forward(pm, h)
+    y = _moe_dispatch(pm, h, cfg, ctx, ctx.moe_capacity_factor)
+    shared = shared_experts(pm, h)
+    return y if shared is None else y + shared
 
 
 def embed_lookup(embed, tokens):
@@ -793,9 +1001,9 @@ def rglru_cache_spec(cfg: ModelConfig, batch: int):
 
 
 # ============================================================== kind dispatch
-def init_layer(gen, cfg: ModelConfig, kind: str, device):
+def init_layer(gen, cfg: ModelConfig, kind: str, device, moe: Optional[bool] = None):
     if kind in ("attn", "swa"):
-        return init_block(gen, cfg, kind, device)
+        return init_block(gen, cfg, kind, device, moe)
     if kind == "ssd":
         return init_ssd(gen, cfg, device)
     if kind == "rglru":

@@ -61,8 +61,8 @@ def _index_tree(tree, i: int):
 
 # ------------------------------------------------------------------------ init
 def init_segment(gen, cfg: ModelConfig, unit: tuple[str, ...], repeat: int,
-                 device):
-    return stack_trees([tuple(L.init_layer(gen, cfg, kind, device) for kind in unit)
+                 device, moe: Optional[bool] = None):
+    return stack_trees([tuple(L.init_layer(gen, cfg, kind, device, moe) for kind in unit)
                         for _ in range(repeat)])
 
 
@@ -76,8 +76,8 @@ def init_params(gen: Optional[torch.Generator], cfg: ModelConfig, device="cuda")
                                 cfg.d_model, device),
         "final_norm": torch.zeros((cfg.d_model,), dtype=torch.float32, device=device),
     }
-    params["segments"] = [init_segment(gen, cfg, unit, repeat, device)
-                          for unit, repeat in cfg.segments]
+    params["segments"] = [init_segment(gen, cfg, unit, repeat, device, cfg.segment_is_moe(i))
+                          for i, (unit, repeat) in enumerate(cfg.segments)]
     if not cfg.tie_embeddings:
         params["lm_head"] = uniform_scaled(gen, (cfg.d_model, cfg.padded_vocab),
                                            cfg.torch_dtype, cfg.d_model, device)

@@ -657,9 +657,13 @@ class SharedKVSlab:
     instance.  A physical page is keyed by the *pool offset* ElasticKV
     assigned to the block, so concurrently-decoding models' sequences
     interleave pages without coordination — the Unified Memory Pool already
-    guarantees the offsets are disjoint."""
+    guarantees the offsets are disjoint.
 
-    def __init__(self, k_pages: torch.Tensor, v_pages: torch.Tensor,
+    A latent slab (multi-head latent attention) holds one buffer, `k_pages`
+    (L, P, T, 1, r + dr): each token's latent row, read as K and, its first
+    r columns, as V; `v_pages` is None."""
+
+    def __init__(self, k_pages: torch.Tensor, v_pages: Optional[torch.Tensor],
                  on_grow: Optional[Callable[["SharedKVSlab"], None]] = None):
         self.k_pages = k_pages  # (L, P, T, K, hd)
         self.v_pages = v_pages
@@ -706,7 +710,8 @@ class SharedKVSlab:
         pad = num_pages - self.num_pages
         zeros = self.k_pages.new_zeros((L, pad, T, K, hd))
         self.k_pages = torch.cat([self.k_pages, zeros], dim=1)
-        self.v_pages = torch.cat([self.v_pages, zeros], dim=1)
+        if self.v_pages is not None:
+            self.v_pages = torch.cat([self.v_pages, zeros], dim=1)
         if self.on_grow is not None:
             self.on_grow(self)
 
@@ -1404,13 +1409,17 @@ class Engine:
         demand).  Instances of different models with equal geometry share."""
         L, K, hd = cfg.num_layers, cfg.num_kv_heads, cfg.resolved_head_dim
         T = self.block_tokens
-        key = (L, T, K, hd, cfg.dtype)
+        latent = cfg.is_mla  # one buffer of latent rows, no second copy for V
+        if latent:
+            K, hd = 1, cfg.latent_width
+        key = (L, T, K, hd, cfg.dtype) + (("latent",) if latent else ())
         slab = self._slabs.get(key)
         if slab is None:
             shape = (L, num_pages, T, K, hd)
             slab = SharedKVSlab(
                 torch.zeros(shape, dtype=cfg.torch_dtype, device=self.device),
-                torch.zeros(shape, dtype=cfg.torch_dtype, device=self.device),
+                None if latent else torch.zeros(shape, dtype=cfg.torch_dtype,
+                                                device=self.device),
                 on_grow=lambda s: self._drop_graphs(slab=s))
             self._slabs[key] = slab
         else:
@@ -1462,6 +1471,8 @@ class Engine:
             raise ValueError(
                 f"no live paged instance of {model_id!r} holds {req!r}")
         slab = inst.slab
+        if slab.v_pages is None:
+            raise NotImplementedError("live migration of a latent KV slab is not ported")
         # the sync-free decode loop calls `ensure` only on block boundaries,
         # so `kv.seq_lens` can lag the authoritative host mirror mid-block
         b = int(req[3:]) if req.startswith("seq") and req[3:].isdigit() else 0
@@ -1619,7 +1630,7 @@ class Engine:
             model_id, lambda tok, tab, lens: _paged_decode_step(params, cfg, tok, tab, lens,
                                                                 k_pages, v_pages, attn=attn),
             (cfg, attn), (token, tables, lengths), tree=self._tree_of[model_id],
-            baked=(k_pages, v_pages), slab=slab)
+            baked=(k_pages,) if v_pages is None else (k_pages, v_pages), slab=slab)
 
     def _state_step(self, model_id: str, params, cfg: ModelConfig, token, pos, cache):
         """`Model.decode` of a state family (rings, recurrence states,
@@ -1644,11 +1655,12 @@ class Engine:
 
 
 def _is_paged_family(cfg: ModelConfig) -> bool:
-    # full-attention homogeneous stacks decode through the paged kernel;
+    # full-attention homogeneous stacks decode through the paged kernel (a
+    # latent-attention model's leading dense layers make a second segment);
     # SWA models use the ring cache (window masking), state models their state
     return (cfg.family in ("dense", "moe", "vlm")
             and all(k == "attn" for k in cfg.pattern)
-            and len(cfg.segments) == 1)
+            and (len(cfg.segments) == 1 or cfg.is_mla))
 
 
 class Instance:
@@ -1747,6 +1759,7 @@ class Instance:
         self.kv.ensure({f"seq{b}": int(lens[b]) for b in range(B)})
         T = self.kv.block_tokens
         nblk = -(-S // T)
+        self.max_blocks = _table_width(self.max_blocks, nblk)
         self._tables_np = np.zeros((B, self.max_blocks), np.int32)
         self._nblk = np.zeros((B,), np.int64)
         per_seq = [self._pages(self.kv.block_tables[f"seq{b}"])
@@ -1761,6 +1774,11 @@ class Instance:
         self._tables = eng.h2d(self._tables_np, torch.int32)
         self._tables_stale = False
 
+        if self.slab.v_pages is None:  # latent rows, one segment at a time
+            nbytes = _scatter_prefill_latent(self.slab, cache, nblk, T, page_ids, eng.h2d)
+            if traced:
+                self._device_span("prefill.kv", tb, bytes=nbytes)
+            return last
         # cache is [segment0][unit0] = {"k": (L, B, cap, K, hd), ...}
         k_all = cache[0][0]["k"]
         v_all = cache[0][0]["v"]
@@ -1772,10 +1790,10 @@ class Instance:
             self._device_span("prefill.kv", tb)
         return last
 
-    def _device_span(self, name: str, begin: float):
+    def _device_span(self, name: str, begin: float, **args):
         eng = self.engine
         eng.clock.emit(name, begin, track=eng._track,
-                       args={"rid": self.rid, "model": self.reg.model_id})
+                       args={"rid": self.rid, "model": self.reg.model_id, **args})
 
     # -------------------------------------------------------- table plumbing
     def _advance_tables(self):
@@ -1790,7 +1808,13 @@ class Instance:
             return  # no sequence crosses a block boundary this step
         self.kv.ensure({f"seq{b}": int(self._host_lens[b]) + 1
                         for b in range(len(self._host_lens))})
-        for b in np.nonzero(self._host_lens % T == 0)[0]:
+        crossing = np.nonzero(self._host_lens % T == 0)[0]
+        width = _table_width(self.max_blocks, max(len(self.kv.block_tables[f"seq{b}"])
+                                                  for b in crossing))
+        if width > self.max_blocks:  # a sequence outgrew its table: widen it
+            self._tables_np = np.pad(self._tables_np, ((0, 0), (0, width - self.max_blocks)))
+            self.max_blocks = width
+        for b in crossing:
             pbns = self.kv.block_tables[f"seq{b}"]
             for i in range(int(self._nblk[b]), len(pbns)):
                 self._tables_np[b, i] = self.slab.page_of(self.kv.addr[pbns[i]])
@@ -1922,6 +1946,38 @@ class Instance:
 
 
 # ------------------------------------------------------------ prefill scatter
+def _table_width(width: int, blocks: int) -> int:
+    """A block table's width for `blocks` blocks a sequence: `width` where
+    they fit, else the smallest power-of-two multiple of it that holds them.
+    A table that fits keeps its width, so the decode step's shapes (and
+    K1's split plan) stay those of `max_blocks_per_seq`; a long prompt widens
+    its table once or twice, not at every block."""
+    while width < blocks:
+        width *= 2
+    return width
+
+
+def _scatter_prefill_latent(slab: SharedKVSlab, cache, nblk: int, T: int,
+                            page_ids: np.ndarray, h2d) -> int:
+    """Scatter a prefill's latent rows into a latent slab's pages in place,
+    one `index_copy_` a segment (the segments' caches,
+    ``cache[seg][0]["ckv"]`` (repeat, B, cap, W), are the slab's layers in
+    order); page ids as `_scatter_prefill_kv`'s.  Returns the bytes
+    written."""
+    flat = page_ids.reshape(-1)
+    keep = np.nonzero(flat < slab.num_pages)[0]
+    src = h2d(keep, torch.int64)
+    dst = h2d(flat[keep], torch.int64)
+    l0 = 0
+    for seg in cache:
+        lat = seg[0]["ckv"]
+        n, B, _, W = lat.shape
+        rows = lat[:, :, : nblk * T].reshape(n, B * nblk, T, 1, W)
+        slab.k_pages[l0 : l0 + n].index_copy_(1, dst, rows.index_select(1, src))
+        l0 += n
+    return l0 * len(keep) * T * slab.k_pages.shape[-1] * slab.k_pages.element_size()
+
+
 def _scatter_prefill_kv(slab: SharedKVSlab, kc, vc, page_ids: np.ndarray, h2d):
     """Scatter a prefill's dense KV into slab pages in place, in one
     `index_copy_` per buffer.
@@ -1953,6 +2009,8 @@ def _paged_decode_step(params, cfg: ModelConfig, token, tables, lengths,
     layer with `lengths + 1`.  Returns (logits, lengths + 1) — lengths
     advance on device so the caller never syncs.
     """
+    if cfg.is_mla:
+        return _paged_mla_step(params, cfg, token, tables, lengths, k_pages, attn=attn)
     B = token.shape[0]
     _, P, T, K, hd = k_pages.shape
     pos = lengths  # next position = current per-sequence length
@@ -1984,5 +2042,47 @@ def _paged_decode_step(params, cfg: ModelConfig, token, tables, lengths,
         # sync-free
         h = h + (Lmod.moe_forward(p["mlp"], hm, cfg, Lmod.DECODE_CAPACITY_FACTOR)
                  if cfg.is_moe else Lmod.mlp_forward(p["mlp"], hm))
+    logits = lm.unembed(params, cfg, h)[:, 0]
+    return logits, new_lens
+
+
+def _paged_mla_step(params, cfg: ModelConfig, token, tables, lengths, lat_pages, *,
+                    attn: str = "kernel"):
+    """`_paged_decode_step` of a latent-attention model: each layer writes
+    the token's latent row [c | k_pe] to its page, then attends in the
+    absorbed form through K1's latent mode (`kernels.paged_latent_attention`)
+    over lat_pages (L, P, T, 1, r + dr); a segment's layers take its MLP
+    (the leading dense layers theirs, the MoE layers routed plus shared
+    experts).  Returns (logits, lengths + 1)."""
+    B = token.shape[0]
+    _, P, T, _, W = lat_pages.shape
+    r = cfg.kv_lora_rank
+    pos = lengths
+    h = params["embed"][token][:, None, :]  # (B, 1, D)
+    positions = pos[:, None]
+    b_idx = torch.arange(B, device=token.device)
+    pbn = tables[b_idx, (pos // T).long()]
+    row = pbn.long() * T + (pos % T).long()  # row in a layer's (P*T, W) view
+    new_lens = lengths + 1
+    attn_fn = kops.paged_latent_attention if attn == "kernel" else kops.paged_latent_attention_ref
+    scale = Lmod.mla_softmax_scale(cfg)
+    table = Lmod.mla_rope_table(positions, cfg)  # every layer's rotary cos and sin
+    # the MLPs' context: B on the host gives the experts' capacity (sync-free)
+    ctx = Lmod.SeqCtx(positions=positions, moe_capacity_factor=Lmod.DECODE_CAPACITY_FACTOR)
+    layer = 0
+    for seg_params, (_, repeat) in zip(params["segments"], cfg.segments):
+        for i in range(repeat):
+            p = lm._index_tree(seg_params, i)[0]
+            pa = p["attn"]
+            q, lat = Lmod.mla_project(pa, rms_norm(h, p["ln1"], cfg.norm_eps), cfg, table)
+            pages = lat_pages[layer]
+            pages.view(P * T, W).index_copy_(0, row, lat[:, 0])
+            o_lat = attn_fn(Lmod.mla_absorb_q(q, pa["wkv_b"], cfg)[:, 0], pages, tables,
+                            new_lens, v_dim=r, scale=scale)
+            h = h + Lmod._out_proj(Lmod.mla_expand_o(o_lat[:, None], pa["wkv_b"], cfg),
+                                   pa["wo"])
+            hm = rms_norm(h, p["ln2"], cfg.norm_eps)
+            h = h + Lmod._mlp(p, hm, cfg, ctx)
+            layer += 1
     logits = lm.unembed(params, cfg, h)[:, 0]
     return logits, new_lens

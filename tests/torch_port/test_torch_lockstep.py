@@ -2,10 +2,14 @@
 reference file, import statements aside (they are redirected to
 `repro_torch`)."""
 import ast
+import dataclasses
+import difflib
 import re
 from pathlib import Path
 
 import pytest
+
+from repro_torch.configs import all_configs as all_port_configs
 
 ROOT = Path(__file__).resolve().parents[2]
 REF, PORT = ROOT / "src" / "repro", ROOT / "src" / "repro_torch"
@@ -58,12 +62,58 @@ def test_copied_module_imports_only_port(rel):
 
 def test_config_base_differs_only_in_dtype_property():
     """configs/base.py is the one edited copy: `torch_dtype` replaces
-    `jnp_dtype`; kv_bytes_per_token keeps dtype_bytes=2 for every config."""
+    `jnp_dtype`; kv_bytes_per_token keeps dtype_bytes=2 for every config.
+    Beside that it only adds lines, never changes or drops one of the
+    reference's: the port-only architectures' fields (latent attention,
+    YaRN, shared experts, leading dense layers, `norm_topk_prob`), each with
+    a default that leaves every registered model as it is, and the code
+    that reads them."""
     ref = without_imports(REF / "configs/base.py")
     port = without_imports(PORT / "configs/base.py")
     swap = {"    def jnp_dtype(self):": "    def torch_dtype(self) -> torch.dtype:",
             "        return jnp.dtype(self.dtype)": "        return getattr(torch, self.dtype)"}
-    assert [swap.get(line, line) for line in ref] == port
+    ref = [swap.get(line, line) for line in ref]
+    added = []
+    for op, i1, i2, j1, j2 in difflib.SequenceMatcher(a=ref, b=port, autojunk=False).get_opcodes():
+        assert op in ("equal", "insert"), (op, ref[i1:i2], port[j1:j2])
+        if op == "insert":
+            added += port[j1:j2]
+    fields = [line for line in added if re.match(r"^    [a-z_]+: [^=()]+(=|$)", line)]
+    assert fields and all("=" in line for line in fields), fields
+
+
+def _reference_configs() -> dict:
+    pytest.importorskip("jax")  # the reference's configs import it
+    from repro.configs import all_configs
+    return all_configs()
+
+
+def _same_config(port, ref):
+    """`port` holds `ref`'s value in every field of the reference, the
+    port-only fields' defaults, and the same derived sizes."""
+    ref_fields = {f.name for f in dataclasses.fields(ref)}
+    for f in dataclasses.fields(port):
+        want = getattr(ref, f.name) if f.name in ref_fields else f.default
+        assert getattr(port, f.name) == want, (port.name, f.name)
+    assert port.segments == ref.segments
+    assert port.kv_bytes_per_token() == ref.kv_bytes_per_token()
+    assert port.param_count() == ref.param_count()
+    assert port.param_bytes() == ref.param_bytes()
+
+
+def test_port_registers_the_reference_architectures():
+    assert sorted(all_port_configs()) == sorted(_reference_configs())
+
+
+@pytest.mark.parametrize("name", sorted(all_port_configs()))
+def test_config_base_gives_the_reference_values(name):
+    """The fields base.py adds leave every architecture the reference
+    registers as it is: its fields, segments, KV bytes a token, parameter
+    count, and the same again of its smoke() variant."""
+    from repro_torch.configs import get_config
+    ref, port = _reference_configs()[name], get_config(name)
+    _same_config(port, ref)
+    _same_config(port.smoke(), ref.smoke())
 
 
 def test_copy_list_covers_every_ported_verbatim_module():

@@ -229,6 +229,20 @@ def test_routed_path_matches_slot_path_and_reference(case, dtype, monkeypatch):
     assert close_to(out, ref, dtype), max_err(out, ref)
 
 
+@pytest.mark.parametrize("experts,shape", [(8, (6,)), (128, (8,)), (128, (64,)), (64, (3000,)),
+                                           (64, (2, 40)), (8, (3, 5))])
+def test_slot_layouts_count_alike(experts, shape):
+    """`_slots`' two one-hot layouts give the same running counts, and
+    slots and drops are the running counts capped, whichever it takes."""
+    flat_e = torch.randint(0, experts, shape, generator=torch.Generator().manual_seed(experts))
+    outer = port_layers._running_counts(flat_e, experts, inner=False)
+    assert torch.equal(outer, port_layers._running_counts(flat_e, experts, inner=True))
+    earlier = (flat_e[..., None, :] == flat_e[..., :, None]).tril().sum(-1) - 1
+    assert torch.equal(outer, earlier)
+    slot, keep = port_layers._slots(flat_e, experts, cap=2)
+    assert torch.equal(keep, earlier < 2) and torch.equal(slot, earlier.clamp(max=2))
+
+
 @pytest.mark.parametrize("step", ["prefill", "decode"])
 def test_moe_capacity_factors_follow_the_reference(step, monkeypatch):
     """Prefill routes with capacity factor 1.25 and every decode step (ring

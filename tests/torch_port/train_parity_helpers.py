@@ -44,7 +44,7 @@ class GradRouterReplay:
                                ordered=True)
             return w, idx
 
-        def replaying(xf, router, k):
+        def replaying(xf, router, k, norm=True):
             key = router.data_ptr()
             if key not in self.by_layer:
                 jax.effects_barrier()
@@ -55,6 +55,8 @@ class GradRouterReplay:
             assert idx.numel() == xf[..., 0].numel() * k
             idx = idx.reshape(*xf.shape[:-1], k)
             w = torch.softmax(xf.to(torch.float32) @ router, dim=-1).gather(-1, idx)
+            if not norm:  # `route`'s norm_topk_prob, as the port's route takes it
+                return w, idx
             return w / torch.clamp(w.sum(-1, keepdim=True), min=1e-9), idx
 
         jax.clear_caches()  # no compiled reference step may skip the callback
