@@ -17,10 +17,12 @@ run outside a checkout of the repository):
    head dim 64 / 128; prefill: S of 1 to 512 around the 64-row tiles,
    sliding windows, non-causal, head dim 32 / 64 / 128 / 256, G of 1 / 4 /
    7 / 8 / 16; the routed experts: routed and dropped pairs at qwen3-moe's,
-   mixtral's and smoke widths), with the kernel's, the plain version's and
-   a PyTorch call's time (for the routed experts, the slot path's expert
-   products) beside the bound, at the shapes of every model the script
-   serves and at one long shape each (`[timing]` lines: a 4000-token
+   mixtral's and smoke widths; the decode step's rope + K/V write, to the
+   bit, at every served model's decode shape, M-RoPE included, and across a
+   page boundary), with the kernel's, the plain version's and a PyTorch
+   call's time (for the routed experts, the slot path's expert products;
+   none for the rope + K/V write) beside the bound, at the shapes of every
+   model the script serves and at one long shape each (`[timing]` lines: a 4000-token
    conversation at batch 1, a 4096-token prompt);
 3. main path at full width on llama3.2-1b (random weights from a seed):
    `Engine.register_model`, a cold then a warm `Engine.load`, prefill of 4
@@ -259,17 +261,20 @@ def _check(name: str, out, ref, dt: str, desc: str) -> float:
 def _timing_row(name: str, label: str, dt: str, kernel, plain, library, lib_label: str,
                 nbytes: int, flops: int, err: float, note: str = "") -> dict:
     """Kernel, plain-version and library times of one shape beside its bound,
-    achieved rate and share of the bound (and `note`)."""
+    achieved rate and share of the bound (and `note`); `library` None where
+    no library call does the kernel's work."""
     ms = cuda_time_ms(kernel)
     plain_ms = cuda_time_ms(plain)
-    library_ms = cuda_time_ms(library)
+    library_ms = None if library is None else cuda_time_ms(library)
     bound_ms, bound_by = _bound(nbytes, flops, dt)
     rate = (f"{nbytes / ms / 1e9:.3f} TB/s" if bound_by == "bytes"
             else f"{flops / ms / 1e9:.1f} TFLOP/s")
+    lib = ("library none" if library is None else
+           f"{lib_label} {library_ms:.4f} ms")
+    vs = "" if library is None else f", {ms / library_ms:.2f}x the library call"
     log(f"[timing] {name} {label}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-        f"{lib_label} {library_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by}); "
-        f"achieved {rate}, {bound_ms / ms:.3f} of the bound, "
-        f"{ms / library_ms:.2f}x the library call{note}")
+        f"{lib}, bound {bound_ms:.5f} ms ({bound_by}); "
+        f"achieved {rate}, {bound_ms / ms:.3f} of the bound{vs}{note}")
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": library_ms}
 
@@ -488,6 +493,7 @@ def check_kernels() -> dict:
                 "shape": SHAPE_NOTES[label], **row}
     dispatch_cost(main_args)
     rows.update(check_moe_experts())
+    rows.update(check_rope_kv_write())
     rows.update(check_mla_kernels())
     return rows
 
@@ -664,7 +670,8 @@ def mla_phase(device="cuda") -> dict:
             "flash_attention.split": MLA_LAYERS * n}
     log(f"[mla] {n} requests, prompt {MLA_PHASE_PROMPT}, {MLA_PHASE_GEN} tokens: launches {made}, "
         f"modes {modes}; graphs (eager, captures, replays) after each {graphs}")
-    if modes != want or made["paged_attention"] != want["paged_attention.latent"]:
+    if (modes != want or made["paged_attention"] != want["paged_attention.latent"]
+            or made["rope_kv_write"]):
         raise AssertionError(f"[mla] launches {made} {modes}, expected {want}")
     if graphs[1][:2] != graphs[0][:2] or graphs[2][:2] != graphs[0][:2]:
         raise AssertionError(f"[mla] a warm request made eager steps or captures: {graphs}")
@@ -746,6 +753,70 @@ def check_moe_experts() -> dict:
             "source": "src/repro_torch/csrc/moe_experts.cu", "replaces": None,
             "shape": SHAPE_NOTES[label], **row}
         del wg, wu, wd, xe, p, args
+    return rows
+
+
+def check_rope_kv_write() -> dict:
+    """The paged decode step's rope + K/V write against its plain version
+    (the chain of PyTorch kernels it replaced: `common.rope_apply` on q and
+    k, two `index_copy_`), to the bit, at every served model's decode shape
+    and at B 3 across a page boundary, timed beside its bound (q, k and v
+    read and written, the table and rows read once).  No library call does
+    its work.  Returns the timed rows."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import rope_kv_write_ref
+    from repro_torch.models import common
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    rows = {}
+    T, N = 16, 64
+    # (label, B, H, K, hd, lengths, mrope_sections): the decode steps timed
+    # for K1 above, at the same lengths
+    cases = [("main", 4, 32, 8, 64, (545, 417, 233, 97), ()),
+             ("deepseek-7b", 1, 32, 32, 128, (SERVERLESS_PROMPT + SERVERLESS_GEN,), ()),
+             ("qwen3-moe-30b-a3b", 1, 32, 4, 128, (FAMILY_PROMPT + SERVERLESS_GEN,), ()),
+             ("qwen2-vl-7b", 1, 28, 4, 128, (FAMILY_PROMPT + SERVERLESS_GEN,), (16, 24, 24)),
+             ("yi-9b", 1, 32, 4, 128, (SERVERLESS_PROMPT + SERVERLESS_GEN,), ()),
+             ("codeqwen1.5-7b", 1, 32, 32, 128, (SERVERLESS_PROMPT + SERVERLESS_GEN,), ()),
+             ("", 3, 32, 8, 128, (15, 16, 1023), ())]
+    for label, B, H, K, hd, lengths, sections in cases:
+        q, k, v = (torch.randn((B, n, hd), generator=gen, device=dev).to(torch.bfloat16)
+                   for n in (H, K, K))
+        P = B * N + 3
+        tables = torch.randperm(P, generator=gen, device=dev)[: B * N].reshape(B, N)
+        kp, vp = (torch.randn((P, T, K, hd), generator=gen, device=dev).to(torch.bfloat16)
+                  for _ in range(2))
+        pos = torch.tensor(lengths, dtype=torch.int32, device=dev)
+        row = tables[torch.arange(B, device=dev), (pos // T).long()] * T + (pos % T).long()
+        rp = pos[None, :, None].expand(3, B, 1) if sections else pos[:, None]
+        cos, sin = (t.reshape(B, hd // 2).contiguous()
+                    for t in common.rope_table(rp, hd, 10_000.0, sections))
+        kp_ref, vp_ref = kp.clone(), vp.clone()
+        want = rope_kv_write_ref(q, k, v, cos, sin, row, kp_ref, vp_ref)
+        got = ops.rope_kv_write(q, k, v, cos, sin, row, kp, vp)
+        torch.cuda.synchronize()
+        desc = f"bfloat16 B{B} H{H} K{K} hd{hd} lengths {list(lengths)}" + (
+            f" M-RoPE {sections}" if sections else "")
+        equal = (torch.equal(got, want) and torch.equal(kp, kp_ref)
+                 and torch.equal(vp, vp_ref))
+        log(f"[kernel] rope_kv_write {desc}: bitwise equal to its plain version {equal}")
+        if not equal:
+            raise AssertionError(f"rope_kv_write leaves its plain version at {desc}")
+        if not label:
+            continue
+        args = (q, k, v, cos, sin, row, kp, vp)
+        nbytes = (2 * B * (H + 2 * K) * hd * q.element_size()  # q, k, v read and written
+                  + 2 * B * hd // 2 * cos.element_size() + B * row.element_size())
+        row_ = _timing_row("rope_kv_write", f"{label} {desc}", "bfloat16",
+                           lambda: ops.rope_kv_write(*args), lambda: rope_kv_write_ref(*args),
+                           None, "", nbytes, 6 * B * (H + K) * hd // 2, 0.0)
+        rows[("rope_kv_write", label)] = {
+            "name": "rope_kv_write", "route": "cuda",
+            "source": "src/repro_torch/csrc/rope_kv_write.cu", "replaces": None,
+            "shape": SHAPE_NOTES[label], **row_}
     return rows
 
 
@@ -946,6 +1017,7 @@ def main_path(cfg=None, device="cuda") -> dict:
         f"prefills {prefills}, layers {L}")
     if cuda:  # CPU tensors run the plain versions and launch nothing
         assert counts["paged_attention"] == L * decode_dispatches, counts
+        assert counts["rope_kv_write"] == L * decode_dispatches, counts
         assert counts["flash_attention"] == L * prefills, counts
 
     for i, lg in enumerate(step_logits):
@@ -1357,10 +1429,11 @@ def ring_slots(inst):
 def kernel_launches(cfg, requests: int, gen: int) -> dict:
     """Launches each kernel makes serving `requests` requests of `gen`
     tokens: K2 once per attention layer per prefill (the encoder's layers
-    too), K1 once per layer per decode step on the paged path only (the
-    non-paged fallback decodes with the plain dense attention, as the
-    reference does), the routed experts once per MoE layer per decode step
-    on both paths."""
+    too), K1 and the rope + K/V write once per layer per decode step on the
+    paged path only (the non-paged fallback decodes with the plain dense
+    attention, as the reference does; a latent-attention model's paged step
+    writes its latent rows without the rope + K/V write), the routed
+    experts once per MoE layer per decode step on both paths."""
     from repro_torch.serving.engine import _is_paged_family
 
     flash = sum(k in ("attn", "swa") for k in cfg.pattern)
@@ -1371,7 +1444,8 @@ def kernel_launches(cfg, requests: int, gen: int) -> dict:
     routed = (cfg.num_layers * gen if cfg.is_moe and cfg.experts_per_token < cfg.num_experts
               else 0)
     return {"paged_attention": paged * requests, "flash_attention": flash * requests,
-            "moe_experts": routed * requests}
+            "moe_experts": routed * requests,
+            "rope_kv_write": 0 if cfg.is_mla else paged * requests}
 
 
 @contextlib.contextmanager
@@ -1677,8 +1751,11 @@ def steady_decode(eng, cfgs, tag, prompt):
     phase's prompt, two untimed steps (the key's eager first call and its
     capture, or replays where the key is still live, as the line says),
     then `STEADY_STEPS` replays timed sync-free, against the weight-read
-    floor (`weight_floor`), and 8 more under the profiler."""
+    floor (`weight_floor`), and 8 more under the profiler; where the step
+    ropes through `rope_kv_write`, 8 replays of a key captured with its
+    plain version too (`plain_rope_kernels`)."""
     from repro_torch.serverless.gateway import greedy, make_prefill_batch, settle, sync_free
+    from repro_torch.serving.engine import _is_paged_family
 
     for m, cfg in cfgs.items():
         eng.load(m)
@@ -1702,8 +1779,39 @@ def steady_decode(eng, cfgs, tag, prompt):
             if prof:  # the profiler's own tracing lengthens the profiled wall
                 log(f"[{tag}] {m}: device busy {prof['busy_ms']:.3f} ms against the "
                     f"unprofiled {wall:.3f} ms wall: idle share {1 - prof['busy_ms'] / wall:.3f}")
+            if prof and eng.step_graphs is not None and _is_paged_family(cfg) and not cfg.is_mla:
+                tok = plain_rope_kernels(inst, tok, tag, m, cfg, prof["kernels"])
         inst.finish()
         eng.release(m)
+
+
+def plain_rope_kernels(inst, tok, tag, m, cfg, with_kernel: float):
+    """Kernels the profiler sees in one replayed decode step of `inst` when
+    the rope + K/V write's plain version (the chain of PyTorch kernels it
+    replaced, the table still built once a step) stands in the kernel's
+    place, against `with_kernel`, the count with the kernel: a key captured
+    for the plain version, 8 of its replays profiled, then every key
+    dropped, so later steps capture the kernel again.  Returns the token."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import rope_kv_write_ref
+
+    graphs = inst.engine.step_graphs
+    real = ops.rope_kv_write
+    graphs.drop()
+    ops.rope_kv_write = rope_kv_write_ref
+    try:
+        tok, _ = warm_steps(inst, tok)
+        prof = profile_decode_steps(inst, tok, 8, tag,
+                                    f"{m} B=1 graphed, rope + K/V write by its plain version")
+    finally:
+        ops.rope_kv_write = real
+        graphs.drop()
+    if prof:
+        fewer = prof["kernels"] - with_kernel
+        log(f"[{tag}] {m}: kernels in one replayed step {with_kernel:.0f} with rope_kv_write, "
+            f"{prof['kernels']:.0f} with its plain version: {fewer:.0f} fewer, "
+            f"{fewer / cfg.num_layers:.1f} a layer of {cfg.num_layers}")
+    return tok
 
 
 def family_configs() -> dict:
@@ -1814,7 +1922,8 @@ def trace_phase(cfg, weights, device="cuda") -> dict:
     log(f"[trace] wrote {path}: {len(spans)} spans {json.dumps(families)}")
     if dev.type == "cuda":
         want = {"paged_attention": cfg.num_layers * TRACE_STEPS,
-                "flash_attention": cfg.num_layers, "moe_experts": 0}
+                "flash_attention": cfg.num_layers, "moe_experts": 0,
+                "rope_kv_write": cfg.num_layers * TRACE_STEPS}
         assert counts == want, (counts, want)
     return counts
 
@@ -1980,7 +2089,8 @@ def graphs_phase(cfg, weights, device="cuda") -> dict:
     assert graphed["launches"] == eager["launches"], (graphed["launches"], eager["launches"])
     if cuda:
         assert eager["launches"] == {"paged_attention": L * dispatches,
-                                     "flash_attention": 2 * L, "moe_experts": 0}, eager["launches"]
+                                     "flash_attention": 2 * L, "moe_experts": 0,
+                                     "rope_kv_write": L * dispatches}, eager["launches"]
     bitwise, worst, flips = 0, 0.0, 0
     for i, (e, gr) in enumerate(zip(eager["logits"], graphed["logits"])):
         assert e.shape == gr.shape and bool(torch.isfinite(gr.float()).all()), i
@@ -3263,7 +3373,8 @@ def train_phase(device="cuda", smoke=False):
     log(f"[train] launcher contract {time.perf_counter() - t0:.1f} s; {host_memory()}")
     counts = ops.launch_counts()
     log(f"[train] (e) kernel launches over the phase: {counts}")
-    assert counts == {"paged_attention": 0, "flash_attention": 0, "moe_experts": 0}, counts
+    assert counts == {"paged_attention": 0, "flash_attention": 0, "moe_experts": 0,
+                      "rope_kv_write": 0}, counts
     if torch.device(device).type == "cuda":
         release_memory()
 

@@ -6,6 +6,9 @@ flash_attention.py  blockwise causal/SWA/GQA prefill attention
                     (CUDA: csrc/flash_attention.cu)
 moe_experts.py      a MoE layer's SwiGLU over its routed experts only
                     (CUDA: csrc/moe_experts.cu)
+rope_kv_write.py    a paged decode step layer's rotary embedding of q and k
+                    and its K/V rows written to their pages
+                    (CUDA: csrc/rope_kv_write.cu)
 ops.py              device-dispatching entry points and launch counters
 ref.py              plain PyTorch versions: run for CPU tensors, and the
                     yardstick the kernels are checked against on the card
@@ -13,4 +16,4 @@ build.py            nvcc build (sm_90a) and ctypes loading, at first use
 """
 from repro_torch.kernels.ops import (flash_attention, flash_attention_ref,  # noqa: F401
                                      moe_experts, moe_experts_ref, paged_attention,
-                                     paged_attention_ref)
+                                     paged_attention_ref, rope_kv_write, rope_kv_write_ref)

@@ -1,12 +1,14 @@
 """Plain PyTorch versions of the kernels (port of `repro/kernels/ref.py`,
-and `moe_experts_ref`, which has no reference kernel).
+and `moe_experts_ref` and `rope_kv_write_ref`, which have no reference
+kernel).
 
-`paged_attention_ref` / `flash_attention_ref` / `moe_experts_ref` define
-what the CUDA kernels compute, run for CPU tensors, and are what the
-kernels are held against on the card.  Same casts as the reference
-oracles: scores in fp32, probabilities cast to q.dtype before the V
-product; the experts round where the slot dispatch
-(`models.layers.moe_forward`) rounds.
+`paged_attention_ref` / `flash_attention_ref` / `moe_experts_ref` /
+`rope_kv_write_ref` define what the CUDA kernels compute, run for CPU
+tensors, and are what the kernels are held against on the card.  Same
+casts as the reference oracles: scores in fp32, probabilities cast to
+q.dtype before the V product; the experts round where the slot dispatch
+(`models.layers.moe_forward`) rounds; the rotary embedding rounds as
+`models.common.rope_apply` does.
 """
 from __future__ import annotations
 
@@ -120,3 +122,27 @@ def moe_experts_ref(x, ids, w, keep, wg, wu, wd):
     y = torch.bmm(h, wd[e])[:, 0]  # (T * k, D)
     y = y * (w.reshape(-1, 1) * keep.reshape(-1, 1)).to(y.dtype)
     return y.reshape(T, k, -1).sum(dim=1)
+
+
+def rope_kv_write_ref(q, k, v, cos, sin, row, k_pages, v_pages):
+    """Rotary embedding of a decode step's q and k, and its K/V rows written
+    to their pages: the chain of `models.common.rope_apply` on q and k and
+    two `index_copy_`.
+
+    q:       (B, H, hd)     the step's query heads
+    k, v:    (B, K, hd)     its new key and value rows
+    cos, sin (B, hd / 2)    fp32, the step's `common.rope_table`
+    row:     (B,) int64     each sequence's row of a layer's (P * T, K, hd) pages
+    k_pages, v_pages (P, T, K, hd): one layer's, updated in place (the roped
+    k and v at `row`).  Returns the roped q (B, H, hd).
+    """
+    P, T, K, hd = k_pages.shape
+    cos, sin = cos[:, None, :], sin[:, None, :]
+
+    def rope(x):  # common.rope_apply's products and rounding
+        x1, x2 = torch.chunk(x.to(F32), 2, dim=-1)
+        return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
+
+    k_pages.view(P * T, K, hd).index_copy_(0, row, rope(k))
+    v_pages.view(P * T, K, hd).index_copy_(0, row, v)
+    return rope(q)

@@ -101,22 +101,20 @@ def deinterleave(x: torch.Tensor) -> torch.Tensor:
     return x.reshape(*lead, d // 2, 2).transpose(-1, -2).reshape(*lead, d)
 
 
-def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
-               mrope_sections: tuple[int, ...] = ()) -> torch.Tensor:
-    """Rotary embedding.
-
-    x: (B, S, H, hd).  positions: (B, S) int32, or (3, B, S) for M-RoPE where
-    the rows are (temporal, height, width) position streams and the frequency
-    slots are split into `mrope_sections` (sums to hd // 2).
-    """
-    hd = x.shape[-1]
-    inv_freq = rope_freqs(hd, theta, x.device)  # (hd/2,)
+def rope_table(positions: torch.Tensor, head_dim: int, theta: float,
+               mrope_sections: tuple[int, ...] = ()) -> tuple[torch.Tensor, torch.Tensor]:
+    """(cos, sin), each (B, S, 1, head_dim / 2) fp32, of the rotary embedding
+    at `positions`: (B, S) int32, or (3, B, S) for M-RoPE, where the rows
+    are (temporal, height, width) position streams and the frequency slots
+    are split into `mrope_sections` (sums to head_dim // 2).  Every head and
+    every layer of a call shares it."""
+    inv_freq = rope_freqs(head_dim, theta, positions.device)  # (hd/2,)
     if mrope_sections:
         assert positions.dim() == 3, "M-RoPE expects (3, B, S) position ids"
-        assert sum(mrope_sections) == hd // 2
+        assert sum(mrope_sections) == head_dim // 2
         # which position stream drives each freq slot, built on the device
         # from host-known section bounds (no host->device copy)
-        slot = torch.arange(hd // 2, device=x.device)
+        slot = torch.arange(head_dim // 2, device=positions.device)
         sec_id = torch.zeros_like(slot)
         for bound in itertools.accumulate(mrope_sections[:-1]):
             sec_id += (slot >= bound).to(sec_id.dtype)
@@ -125,11 +123,24 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
         angles = torch.movedim(angles, 0, -1)  # (B, S, hd/2)
     else:
         angles = positions.to(F32)[..., None] * inv_freq  # (B, S, hd/2)
-    cos = torch.cos(angles)[..., None, :]  # (B, S, 1, hd/2)
-    sin = torch.sin(angles)[..., None, :]
+    return torch.cos(angles)[..., None, :], torch.sin(angles)[..., None, :]
+
+
+def rope_apply(x: torch.Tensor, table: tuple[torch.Tensor, torch.Tensor]) -> torch.Tensor:
+    """x (..., hd) rotated half against half by `rope_table`'s (cos, sin),
+    which broadcast against x's leading axes: products and sums in fp32,
+    rounded once to x.dtype."""
+    cos, sin = table
     x1, x2 = torch.chunk(x.to(F32), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
+               mrope_sections: tuple[int, ...] = ()) -> torch.Tensor:
+    """Rotary embedding of x (B, S, H, hd) at positions (B, S), or (3, B, S)
+    for M-RoPE: `rope_apply` of `rope_table`."""
+    return rope_apply(x, rope_table(positions, x.shape[-1], theta, mrope_sections))
 
 
 # ---------------------------------------------------------------------- attention

@@ -291,10 +291,8 @@ def mla_rope_table(positions: torch.Tensor, cfg: ModelConfig) -> tuple:
 def mla_rope(x: torch.Tensor, table: tuple) -> torch.Tensor:
     """Rotary embedding of x (B, S, h, dr) by `mla_rope_table`'s (cos, sin):
     its interleaved pairs regrouped (`common.deinterleave`), then rotated
-    half against half, as `common.apply_rope` does."""
-    cos, sin = table
-    x1, x2 = torch.chunk(common.deinterleave(x).to(F32), 2, dim=-1)
-    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
+    half against half by `common.rope_apply`."""
+    return common.rope_apply(common.deinterleave(x), table)
 
 
 def mla_project(p, x, cfg: ModelConfig, table: tuple):

@@ -2006,8 +2006,11 @@ def _paged_decode_step(params, cfg: ModelConfig, token, tables, lengths,
     k/v_pages: (L, P, T, K, hd), updated in place: each sequence's new K/V
     goes to the page ElasticKV mapped for its position (= its current
     length), then attention runs through the E-Attention paged kernel per
-    layer with `lengths + 1`.  Returns (logits, lengths + 1) — lengths
-    advance on device so the caller never syncs.
+    layer with `lengths + 1`.  The rotary table is built once a step; each
+    layer ropes q and k and writes the K/V rows in one call of
+    `rope_kv_write` (its plain version where `attn` is "ref").  Returns
+    (logits, lengths + 1) — lengths advance on device so the caller never
+    syncs.
     """
     if cfg.is_mla:
         return _paged_mla_step(params, cfg, token, tables, lengths, k_pages, attn=attn)
@@ -2024,18 +2027,20 @@ def _paged_decode_step(params, cfg: ModelConfig, token, tables, lengths,
     pbn = tables[b_idx, (pos // T).long()]  # (B,) physical page per sequence
     row = pbn.long() * T + (pos % T).long()  # row in a layer's (P*T, K, hd) view
     new_lens = lengths + 1
-    attn_fn = kops.paged_attention if attn == "kernel" else kops.paged_attention_ref
+    kernel = attn == "kernel"
+    attn_fn = kops.paged_attention if kernel else kops.paged_attention_ref
+    rope_kv = kops.rope_kv_write if kernel else kops.rope_kv_write_ref
+    # every layer's rotary cos and sin, (B, hd / 2) each
+    cos, sin = (t.reshape(B, hd // 2).contiguous()
+                for t in cmod.rope_table(rp, hd, cfg.rope_theta, cfg.mrope_sections))
 
     for l in range(k_pages.shape[0]):
         p = lm._index_tree(seg_params, l)[0]
         hn = rms_norm(h, p["ln1"], cfg.norm_eps)
         q, knew, vnew = Lmod._project_qkv(p["attn"], hn, cfg)
-        q = cmod.apply_rope(q, rp, cfg.rope_theta, cfg.mrope_sections)
-        knew = cmod.apply_rope(knew, rp, cfg.rope_theta, cfg.mrope_sections)
         kp_l, vp_l = k_pages[l], v_pages[l]
-        kp_l.view(P * T, K, hd).index_copy_(0, row, knew[:, 0])
-        vp_l.view(P * T, K, hd).index_copy_(0, row, vnew[:, 0])
-        o = attn_fn(q[:, 0], kp_l, vp_l, tables, new_lens)
+        q = rope_kv(q[:, 0], knew[:, 0], vnew[:, 0], cos, sin, row, kp_l, vp_l)
+        o = attn_fn(q, kp_l, vp_l, tables, new_lens)
         h = h + Lmod._out_proj(o, p["attn"]["wo"])[:, None, :]
         hm = rms_norm(h, p["ln2"], cfg.norm_eps)
         # MoE: the capacity comes from B on the host, so the step stays

@@ -165,8 +165,16 @@ def test_cpu_tensors_run_the_plain_version_and_launch_nothing():
                                                          [False, True]]),
           *(torch.randn(s, generator=g) for s in ((8, 64, 32), (8, 64, 32), (8, 32, 64))))
     assert torch.equal(ops.moe_experts(*mx), ops.moe_experts_ref(*mx))
+    P, T, K, hd = 5, 4, 2, 16
+    rx = (torch.randn((3, 4, hd), generator=g), *(torch.randn((3, K, hd), generator=g)
+                                                  for _ in range(2)),
+          *(torch.rand((3, hd // 2), generator=g) for _ in range(2)),
+          torch.tensor([0, 7, 19]), *(torch.zeros((P, T, K, hd)) for _ in range(2)))
+    pages = [x.clone() for x in rx[-2:]]
+    assert torch.equal(ops.rope_kv_write(*rx), ops.rope_kv_write_ref(*rx[:-2], *pages))
+    assert all(torch.equal(a, b) for a, b in zip(rx[-2:], pages))
     assert ops.launch_counts() == {"paged_attention": 0, "flash_attention": 0,
-                                  "moe_experts": 0}
+                                  "moe_experts": 0, "rope_kv_write": 0}
 
 
 def test_wrapper_input_checks_reject_what_the_kernel_cannot_take():

@@ -59,14 +59,16 @@ def greedy(logits):
 
 @pytest.fixture
 def counted_k1(monkeypatch):
-    """K1's CPU path counted as the CUDA wrapper counts a launch."""
-    real = ops.paged_attention
+    """K1's and the rope + K/V write's CPU paths counted as the CUDA
+    wrappers count a launch."""
+    for name in ("paged_attention", "rope_kv_write"):
+        real = getattr(ops, name)
 
-    def k1(*args):
-        real.launches += 1
-        return real(*args)
+        def counted(*args, _real=real):
+            _real.launches += 1
+            return _real(*args)
 
-    monkeypatch.setattr(ops, "paged_attention", k1)
+        monkeypatch.setattr(ops, name, counted)
     ops.reset_launch_counts()
     yield
     ops.reset_launch_counts()
@@ -172,6 +174,7 @@ def test_launch_counts_and_logits_equal_to_eager(counted_k1):
     assert graphed_counts == eager_counts
     fused = 6  # one K1 call a layer for both instances, else one each
     assert eager_counts["paged_attention"] == 2 * (2 * (20 - fused) + fused)
+    assert eager_counts["rope_kv_write"] == eager_counts["paged_attention"]
     for e, g in zip(eager, graphed):
         assert torch.equal(e, g)
 

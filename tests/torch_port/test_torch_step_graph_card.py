@@ -164,7 +164,8 @@ def test_launch_counts_equal_eager(runs):
     # the slot path in the fused B 4 steps (8 = 8)
     want = {"paged_attention": cfg.num_layers * (STEPS + FUSED),
             "flash_attention": cfg.num_layers * 2,
-            "moe_experts": cfg.num_layers * STEPS if cfg.is_moe else 0}
+            "moe_experts": cfg.num_layers * STEPS if cfg.is_moe else 0,
+            "rope_kv_write": cfg.num_layers * (STEPS + FUSED)}
     assert out["eager"]["launches"] == out["graphed"]["launches"] == want
 
 

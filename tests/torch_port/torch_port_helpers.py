@@ -1,9 +1,15 @@
 """Shared helpers for the port's parity tests: carry arrays between the JAX
-reference and the PyTorch port as numpy, in both directions."""
+reference and the PyTorch port as numpy, in both directions; the paged
+decode step's rope and K/V write as they were before their kernel."""
+import itertools
+
 import numpy as np
 import torch
 
 from repro_torch.kernels import ops
+from repro_torch.models import common, lm
+from repro_torch.models import layers as Lmod
+from repro_torch.models.common import rms_norm
 
 # tests/test_kernels.py's tolerances: fp32 sums in another order, bf16 rounds
 # at other places in the two frameworks
@@ -109,3 +115,59 @@ class RecordingCapture:
                 pass
 
         return Graph(), outputs, self.pool_bytes
+
+
+def chain_apply_rope(x, positions, theta, mrope_sections=()):
+    """`common.apply_rope` before its table was split out of it."""
+    hd = x.shape[-1]
+    inv_freq = common.rope_freqs(hd, theta, x.device)
+    if mrope_sections:
+        slot = torch.arange(hd // 2, device=x.device)
+        sec_id = torch.zeros_like(slot)
+        for bound in itertools.accumulate(mrope_sections[:-1]):
+            sec_id += (slot >= bound).to(sec_id.dtype)
+        pos = positions.to(torch.float32)
+        angles = pos[sec_id] * inv_freq[:, None, None]
+        angles = torch.movedim(angles, 0, -1)
+    else:
+        angles = positions.to(torch.float32)[..., None] * inv_freq
+    cos = torch.cos(angles)[..., None, :]
+    sin = torch.sin(angles)[..., None, :]
+    x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def chain_step(params, cfg, token, tables, lengths, k_pages, v_pages, *, attn="kernel"):
+    """The paged decode step of a llama-style model as it was before the
+    rope + K/V write kernel: two `apply_rope` and two `index_copy_` a layer."""
+    assert not cfg.is_mla
+    B = token.shape[0]
+    _, P, T, K, hd = k_pages.shape
+    pos = lengths
+    h = params["embed"][token][:, None, :]
+    seg_params = params["segments"][0]
+    positions = pos[:, None]
+    mrope = pos[None, :, None].expand(3, B, 1) if cfg.mrope_sections else None
+    rp = mrope if cfg.mrope_sections else positions
+    b_idx = torch.arange(B, device=token.device)
+    pbn = tables[b_idx, (pos // T).long()]
+    row = pbn.long() * T + (pos % T).long()
+    new_lens = lengths + 1
+    attn_fn = ops.paged_attention if attn == "kernel" else ops.paged_attention_ref
+    for l in range(k_pages.shape[0]):
+        p = lm._index_tree(seg_params, l)[0]
+        hn = rms_norm(h, p["ln1"], cfg.norm_eps)
+        q, knew, vnew = Lmod._project_qkv(p["attn"], hn, cfg)
+        q = chain_apply_rope(q, rp, cfg.rope_theta, cfg.mrope_sections)
+        knew = chain_apply_rope(knew, rp, cfg.rope_theta, cfg.mrope_sections)
+        kp_l, vp_l = k_pages[l], v_pages[l]
+        kp_l.view(P * T, K, hd).index_copy_(0, row, knew[:, 0])
+        vp_l.view(P * T, K, hd).index_copy_(0, row, vnew[:, 0])
+        o = attn_fn(q[:, 0], kp_l, vp_l, tables, new_lens)
+        h = h + Lmod._out_proj(o, p["attn"]["wo"])[:, None, :]
+        hm = rms_norm(h, p["ln2"], cfg.norm_eps)
+        h = h + (Lmod.moe_forward(p["mlp"], hm, cfg, Lmod.DECODE_CAPACITY_FACTOR)
+                 if cfg.is_moe else Lmod.mlp_forward(p["mlp"], hm))
+    logits = lm.unembed(params, cfg, h)[:, 0]
+    return logits, new_lens
