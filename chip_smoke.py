@@ -1287,7 +1287,7 @@ def device_bytes(eng) -> int:
 
     tensors = list(eng._tensors.values())
     for slab in eng._slabs.values():
-        tensors += [slab.k_pages, slab.v_pages]
+        tensors += list(slab.pages)
     for cached in eng._fused.values():
         tensors += [t for t in cached if isinstance(t, torch.Tensor)]
     if eng.step_graphs is not None:  # captured steps' static buffers
@@ -1369,7 +1369,7 @@ def recording_engine():
             self._launches_at[model_id] = ops.launch_counts()
             inst = super().start_instance(model_id, **kw)
             key = (self._tree_of.get(model_id),
-                   None if inst.slab is None else inst.slab.k_pages.data_ptr())
+                   None if inst.slab is None else inst.slab.pages[0].data_ptr())
             live = self.step_graphs is not None and self._key_of.get(model_id) == key
             self._key_of[model_id] = key
             self._graphs_at[model_id] = (self._graph_counts(), live)
@@ -2025,7 +2025,7 @@ def graph_run(eng, cfg, batch, fed=None) -> dict:
     out["host_us"] = math.nan  # a host time of CPU kernels says nothing of the card's
     if g is None and dev.type == "cuda":
         out["host_us"] = _host_us(lambda: _paged_decode_step(
-            *args, inst.slab.k_pages, inst.slab.v_pages), calls=4, repeats=3)
+            *args, inst.slab.pages), calls=4, repeats=3)
     elif g is not None:
         out["pool_bytes"] = g.pool_bytes()
         if dev.type == "cuda":

@@ -31,7 +31,7 @@ Fast paths (DESIGN.md §10), as in the reference:
 
 Where the reference donates buffers to a jitted scatter, the port updates
 the shared slab in place.  `SharedKVSlab.grow` reallocates, so every holder
-re-reads `slab.k_pages` / `slab.v_pages` at each use.
+re-reads `slab.pages` at each use.
 
 The control plane's engine surface is ported too: `crash`, `fault_summary`,
 `prewarm`, `host_resident_bytes`, `host_free_bytes` and `set_host_capacity`
@@ -653,28 +653,40 @@ class Prefetcher:
 
 
 class SharedKVSlab:
-    """One paged K/V buffer per KV geometry, shared by every resident
+    """One paged KV buffer set per KV geometry, shared by every resident
     instance.  A physical page is keyed by the *pool offset* ElasticKV
     assigned to the block, so concurrently-decoding models' sequences
     interleave pages without coordination — the Unified Memory Pool already
     guarantees the offsets are disjoint.
 
-    A latent slab (multi-head latent attention) holds one buffer, `k_pages`
-    (L, P, T, 1, r + dr): each token's latent row, read as K and, its first
-    r columns, as V; `v_pages` is None."""
+    The slab owns the page format: `pages` is (k, v), each (L, P, T, K, hd),
+    for a llama-style model, and (latent,), (L, P, T, 1, r + dr), for
+    multi-head latent attention: each token's latent row, read as K and, its
+    first r columns, as V."""
 
-    def __init__(self, k_pages: torch.Tensor, v_pages: Optional[torch.Tensor],
+    def __init__(self, cfg: ModelConfig, block_tokens: int, num_pages: int, device,
                  on_grow: Optional[Callable[["SharedKVSlab"], None]] = None):
-        self.k_pages = k_pages  # (L, P, T, K, hd)
-        self.v_pages = v_pages
+        self.key = self.geometry(cfg, block_tokens)
+        L, T, K, hd, _, self.latent = self.key
+        self.pages = tuple(torch.zeros((L, num_pages, T, K, hd), dtype=cfg.torch_dtype,
+                                       device=device) for _ in range(1 if self.latent else 2))
         self.on_grow = on_grow  # called after the buffers moved
         self.page_map: dict[int, int] = {}  # pool offset -> page index
         self.free_pages: list[int] = []
         self._next_fresh = 0
 
+    @staticmethod
+    def geometry(cfg: ModelConfig, block_tokens: int) -> tuple:
+        """(L, T, K, hd, dtype, latent): models of equal geometry share a
+        slab."""
+        if cfg.is_mla:  # one buffer of latent rows, no second copy for V
+            return cfg.num_layers, block_tokens, 1, cfg.latent_width, cfg.dtype, True
+        return (cfg.num_layers, block_tokens, cfg.num_kv_heads, cfg.resolved_head_dim,
+                cfg.dtype, False)
+
     @property
     def num_pages(self) -> int:
-        return self.k_pages.shape[1]
+        return self.pages[0].shape[1]
 
     def live_pages(self) -> int:
         return len(self.page_map)
@@ -703,17 +715,38 @@ class SharedKVSlab:
 
     def grow(self, num_pages: int):
         """Reallocate with more pages (existing pages keep their indices);
-        holders must re-read `k_pages` / `v_pages`."""
+        holders must re-read `pages`."""
         if num_pages <= self.num_pages:
             return
-        L, _, T, K, hd = self.k_pages.shape
-        pad = num_pages - self.num_pages
-        zeros = self.k_pages.new_zeros((L, pad, T, K, hd))
-        self.k_pages = torch.cat([self.k_pages, zeros], dim=1)
-        if self.v_pages is not None:
-            self.v_pages = torch.cat([self.v_pages, zeros], dim=1)
+        L, P, *row = self.pages[0].shape
+        zeros = self.pages[0].new_zeros((L, num_pages - P, *row))
+        self.pages = tuple(torch.cat([buf, zeros], dim=1) for buf in self.pages)
         if self.on_grow is not None:
             self.on_grow(self)
+
+    def scatter_prefill(self, cache, nblk: int, page_ids: np.ndarray, h2d) -> int:
+        """Scatter a prefill's cache into the pages in place, one
+        `index_copy_` a buffer and segment.  ``cache[seg][0]`` holds a
+        segment's layers, the slab's in order: ``"k"`` and ``"v"``
+        (n, B, cap, K, hd), or ``"ckv"`` (n, B, cap, r + dr).  page_ids:
+        (B, nblk) host array of physical pages, with out-of-range ids
+        (== num_pages) marking padding entries of shorter sequences; they
+        are dropped on the host, as the reference's scatter mode "drop"
+        does.  Returns the bytes written."""
+        flat = page_ids.reshape(-1)
+        keep = np.nonzero(flat < self.num_pages)[0]
+        src = h2d(keep, torch.int64)
+        dst = h2d(flat[keep], torch.int64)
+        T = self.pages[0].shape[2]
+        l0 = 0
+        for seg in cache:
+            for buf, name in zip(self.pages, ("ckv",) if self.latent else ("k", "v")):
+                c = seg[0][name]
+                n = c.shape[0]
+                rows = c[:, :, : nblk * T].reshape(n, flat.shape[0], *buf.shape[2:])
+                buf[l0 : l0 + n].index_copy_(1, dst, rows.index_select(1, src))
+            l0 += n
+        return l0 * len(keep) * sum(buf[0, 0].nbytes for buf in self.pages)
 
 
 @dataclass
@@ -1407,21 +1440,11 @@ class Engine:
     def kv_slab(self, cfg: ModelConfig, num_pages: int) -> SharedKVSlab:
         """The shared slab for this model's KV geometry (created or grown on
         demand).  Instances of different models with equal geometry share."""
-        L, K, hd = cfg.num_layers, cfg.num_kv_heads, cfg.resolved_head_dim
-        T = self.block_tokens
-        latent = cfg.is_mla  # one buffer of latent rows, no second copy for V
-        if latent:
-            K, hd = 1, cfg.latent_width
-        key = (L, T, K, hd, cfg.dtype) + (("latent",) if latent else ())
-        slab = self._slabs.get(key)
+        slab = self._slabs.get(SharedKVSlab.geometry(cfg, self.block_tokens))
         if slab is None:
-            shape = (L, num_pages, T, K, hd)
-            slab = SharedKVSlab(
-                torch.zeros(shape, dtype=cfg.torch_dtype, device=self.device),
-                None if latent else torch.zeros(shape, dtype=cfg.torch_dtype,
-                                                device=self.device),
-                on_grow=lambda s: self._drop_graphs(slab=s))
-            self._slabs[key] = slab
+            slab = SharedKVSlab(cfg, self.block_tokens, num_pages, self.device,
+                                on_grow=lambda s: self._drop_graphs(slab=s))
+            self._slabs[slab.key] = slab
         else:
             slab.grow(num_pages)
         return slab
@@ -1471,7 +1494,7 @@ class Engine:
             raise ValueError(
                 f"no live paged instance of {model_id!r} holds {req!r}")
         slab = inst.slab
-        if slab.v_pages is None:
+        if slab.latent:
             raise NotImplementedError("live migration of a latent KV slab is not ported")
         # the sync-free decode loop calls `ensure` only on block boundaries,
         # so `kv.seq_lens` can lag the authoritative host mirror mid-block
@@ -1479,11 +1502,12 @@ class Engine:
         inst.kv.ensure({req: int(inst._host_lens[b])})
         snap = inst.kv.snapshot(req, reader=lambda off, lbn: slab.page_map[off])
         idx = self.h2d(np.asarray(snap.pages, np.int64), torch.int64)
-        L, _, T, K, hd = slab.k_pages.shape
+        k_pages, v_pages = slab.pages
+        L, _, T, K, hd = k_pages.shape
         gathered = torch.empty((2, L, len(snap.pages), T, K, hd),
-                               dtype=slab.k_pages.dtype, device=self.device)
-        torch.index_select(slab.k_pages, 1, idx, out=gathered[0])
-        torch.index_select(slab.v_pages, 1, idx, out=gathered[1])
+                               dtype=k_pages.dtype, device=self.device)
+        torch.index_select(k_pages, 1, idx, out=gathered[0])
+        torch.index_select(v_pages, 1, idx, out=gathered[1])
         host = torch.empty(gathered.shape, dtype=gathered.dtype,
                            pin_memory=self.device.type == "cuda")
         host.copy_(gathered)  # one d2h copy; blocks until it has landed
@@ -1523,8 +1547,8 @@ class Engine:
             raise ValueError(f"snapshot needs {len(pages)} blocks but the "
                              f"instance caps at {inst.max_blocks}")
         idx = self.h2d(np.asarray(pages, np.int64), torch.int64)
-        inst.slab.k_pages.index_copy_(1, idx, moved[kname])
-        inst.slab.v_pages.index_copy_(1, idx, moved[vname])
+        for buf, name in zip(inst.slab.pages, (kname, vname)):
+            buf.index_copy_(1, idx, moved[name])
         # adopt the decode state (B=1 handoff): host mirrors authoritative
         inst._host_lens = np.asarray([mig.snap.seq_len], np.int64)
         inst._lengths = self.h2d(inst._host_lens, torch.int32)
@@ -1622,15 +1646,14 @@ class Engine:
                     token, tables, lengths, attn: str):
         """`_paged_decode_step` over `slab`: a replay of the model's captured
         step on a CUDA engine (`StepGraphs.step`), else eager."""
-        k_pages, v_pages = slab.k_pages, slab.v_pages
+        pages = slab.pages
         if self.step_graphs is None:
-            return _paged_decode_step(params, cfg, token, tables, lengths, k_pages, v_pages,
-                                      attn=attn)
+            return _paged_decode_step(params, cfg, token, tables, lengths, pages, attn=attn)
         return self.step_graphs.step(
             model_id, lambda tok, tab, lens: _paged_decode_step(params, cfg, tok, tab, lens,
-                                                                k_pages, v_pages, attn=attn),
+                                                                pages, attn=attn),
             (cfg, attn), (token, tables, lengths), tree=self._tree_of[model_id],
-            baked=(k_pages,) if v_pages is None else (k_pages, v_pages), slab=slab)
+            baked=pages, slab=slab)
 
     def _state_step(self, model_id: str, params, cfg: ModelConfig, token, pos, cache):
         """`Model.decode` of a state family (rings, recurrence states,
@@ -1755,7 +1778,7 @@ class Instance:
             self._cache = cache
             return last
 
-        # allocate block tables for the prompt, then scatter dense KV -> pages
+        # allocate block tables for the prompt, then scatter its cache -> pages
         self.kv.ensure({f"seq{b}": int(lens[b]) for b in range(B)})
         T = self.kv.block_tokens
         nblk = -(-S // T)
@@ -1774,20 +1797,9 @@ class Instance:
         self._tables = eng.h2d(self._tables_np, torch.int32)
         self._tables_stale = False
 
-        if self.slab.v_pages is None:  # latent rows, one segment at a time
-            nbytes = _scatter_prefill_latent(self.slab, cache, nblk, T, page_ids, eng.h2d)
-            if traced:
-                self._device_span("prefill.kv", tb, bytes=nbytes)
-            return last
-        # cache is [segment0][unit0] = {"k": (L, B, cap, K, hd), ...}
-        k_all = cache[0][0]["k"]
-        v_all = cache[0][0]["v"]
-        L = k_all.shape[0]
-        kc = k_all[:, :, : nblk * T].reshape(L, B, nblk, T, *k_all.shape[3:])
-        vc = v_all[:, :, : nblk * T].reshape(L, B, nblk, T, *v_all.shape[3:])
-        _scatter_prefill_kv(self.slab, kc, vc, page_ids, eng.h2d)
+        nbytes = self.slab.scatter_prefill(cache, nblk, page_ids, eng.h2d)
         if traced:
-            self._device_span("prefill.kv", tb)
+            self._device_span("prefill.kv", tb, bytes=nbytes)
         return last
 
     def _device_span(self, name: str, begin: float, **args):
@@ -1945,7 +1957,7 @@ class Instance:
                             cat="engine", args={"rid": self.rid, "model": self.reg.model_id})
 
 
-# ------------------------------------------------------------ prefill scatter
+# ------------------------------------------------------------ block tables
 def _table_width(width: int, blocks: int) -> int:
     """A block table's width for `blocks` blocks a sequence: `width` where
     they fit, else the smallest power-of-two multiple of it that holds them.
@@ -1957,137 +1969,79 @@ def _table_width(width: int, blocks: int) -> int:
     return width
 
 
-def _scatter_prefill_latent(slab: SharedKVSlab, cache, nblk: int, T: int,
-                            page_ids: np.ndarray, h2d) -> int:
-    """Scatter a prefill's latent rows into a latent slab's pages in place,
-    one `index_copy_` a segment (the segments' caches,
-    ``cache[seg][0]["ckv"]`` (repeat, B, cap, W), are the slab's layers in
-    order); page ids as `_scatter_prefill_kv`'s.  Returns the bytes
-    written."""
-    flat = page_ids.reshape(-1)
-    keep = np.nonzero(flat < slab.num_pages)[0]
-    src = h2d(keep, torch.int64)
-    dst = h2d(flat[keep], torch.int64)
-    l0 = 0
-    for seg in cache:
-        lat = seg[0]["ckv"]
-        n, B, _, W = lat.shape
-        rows = lat[:, :, : nblk * T].reshape(n, B * nblk, T, 1, W)
-        slab.k_pages[l0 : l0 + n].index_copy_(1, dst, rows.index_select(1, src))
-        l0 += n
-    return l0 * len(keep) * T * slab.k_pages.shape[-1] * slab.k_pages.element_size()
-
-
-def _scatter_prefill_kv(slab: SharedKVSlab, kc, vc, page_ids: np.ndarray, h2d):
-    """Scatter a prefill's dense KV into slab pages in place, in one
-    `index_copy_` per buffer.
-
-    kc/vc: (L, B, nblk, T, K, hd); page_ids: (B, nblk) host array of
-    physical pages, with out-of-range ids (== num_pages) marking padding
-    entries of shorter sequences; they are dropped on the host, as the
-    reference's scatter mode "drop" does.
-    """
-    L = kc.shape[0]
-    flat = page_ids.reshape(-1)
-    keep = np.nonzero(flat < slab.num_pages)[0]
-    src = h2d(keep, torch.int64)
-    dst = h2d(flat[keep], torch.int64)
-    kc = kc.reshape(L, flat.shape[0], *kc.shape[3:])
-    vc = vc.reshape(L, flat.shape[0], *vc.shape[3:])
-    slab.k_pages.index_copy_(1, dst, kc.index_select(1, src))
-    slab.v_pages.index_copy_(1, dst, vc.index_select(1, src))
-
-
 # ---------------------------------------------------------------- paged decode
-def _paged_decode_step(params, cfg: ModelConfig, token, tables, lengths,
-                       k_pages, v_pages, *, attn: str = "kernel"):
-    """One decode step over paged KV for homogeneous attention models.
+def _paged_decode_step(params, cfg: ModelConfig, token, tables, lengths, pages, *,
+                       attn: str = "kernel"):
+    """One decode step over paged KV for the paged families.
 
-    k/v_pages: (L, P, T, K, hd), updated in place: each sequence's new K/V
-    goes to the page ElasticKV mapped for its position (= its current
-    length), then attention runs through the E-Attention paged kernel per
-    layer with `lengths + 1`.  The rotary table is built once a step; each
-    layer ropes q and k and writes the K/V rows in one call of
-    `rope_kv_write` (its plain version where `attn` is "ref").  Returns
-    (logits, lengths + 1) — lengths advance on device so the caller never
-    syncs.
+    pages: the slab's buffers (`SharedKVSlab.pages`), updated in place: each
+    layer writes the sequence's new cache row to the page ElasticKV mapped
+    for its position (= its current length), then attends through K1 with
+    `lengths + 1` (the kernels' plain versions where `attn` is "ref").  One
+    layer loop over every segment; only the attention sub-block follows the
+    slab's format (`_kv_attention`, `_latent_attention`), and every layer's
+    MLP is `layers._mlp`.  Returns (logits, lengths + 1) — lengths advance
+    on device so the caller never syncs.
     """
-    if cfg.is_mla:
-        return _paged_mla_step(params, cfg, token, tables, lengths, k_pages, attn=attn)
     B = token.shape[0]
-    _, P, T, K, hd = k_pages.shape
+    T = pages[0].shape[2]
     pos = lengths  # next position = current per-sequence length
     h = params["embed"][token][:, None, :]  # (B, 1, D)
-    seg_params = params["segments"][0]
-    positions = pos[:, None]
-    mrope = pos[None, :, None].expand(3, B, 1) if cfg.mrope_sections else None
-    rp = mrope if cfg.mrope_sections else positions
-
     b_idx = torch.arange(B, device=token.device)
     pbn = tables[b_idx, (pos // T).long()]  # (B,) physical page per sequence
-    row = pbn.long() * T + (pos % T).long()  # row in a layer's (P*T, K, hd) view
+    row = pbn.long() * T + (pos % T).long()  # row in a layer's (P*T, ...) view
     new_lens = lengths + 1
-    kernel = attn == "kernel"
-    attn_fn = kops.paged_attention if kernel else kops.paged_attention_ref
-    rope_kv = kops.rope_kv_write if kernel else kops.rope_kv_write_ref
-    # every layer's rotary cos and sin, (B, hd / 2) each
-    cos, sin = (t.reshape(B, hd // 2).contiguous()
-                for t in cmod.rope_table(rp, hd, cfg.rope_theta, cfg.mrope_sections))
-
-    for l in range(k_pages.shape[0]):
-        p = lm._index_tree(seg_params, l)[0]
-        hn = rms_norm(h, p["ln1"], cfg.norm_eps)
-        q, knew, vnew = Lmod._project_qkv(p["attn"], hn, cfg)
-        kp_l, vp_l = k_pages[l], v_pages[l]
-        q = rope_kv(q[:, 0], knew[:, 0], vnew[:, 0], cos, sin, row, kp_l, vp_l)
-        o = attn_fn(q, kp_l, vp_l, tables, new_lens)
-        h = h + Lmod._out_proj(o, p["attn"]["wo"])[:, None, :]
-        hm = rms_norm(h, p["ln2"], cfg.norm_eps)
-        # MoE: the capacity comes from B on the host, so the step stays
-        # sync-free
-        h = h + (Lmod.moe_forward(p["mlp"], hm, cfg, Lmod.DECODE_CAPACITY_FACTOR)
-                 if cfg.is_moe else Lmod.mlp_forward(p["mlp"], hm))
-    logits = lm.unembed(params, cfg, h)[:, 0]
-    return logits, new_lens
-
-
-def _paged_mla_step(params, cfg: ModelConfig, token, tables, lengths, lat_pages, *,
-                    attn: str = "kernel"):
-    """`_paged_decode_step` of a latent-attention model: each layer writes
-    the token's latent row [c | k_pe] to its page, then attends in the
-    absorbed form through K1's latent mode (`kernels.paged_latent_attention`)
-    over lat_pages (L, P, T, 1, r + dr); a segment's layers take its MLP
-    (the leading dense layers theirs, the MoE layers routed plus shared
-    experts).  Returns (logits, lengths + 1)."""
-    B = token.shape[0]
-    _, P, T, _, W = lat_pages.shape
-    r = cfg.kv_lora_rank
-    pos = lengths
-    h = params["embed"][token][:, None, :]  # (B, 1, D)
-    positions = pos[:, None]
-    b_idx = torch.arange(B, device=token.device)
-    pbn = tables[b_idx, (pos // T).long()]
-    row = pbn.long() * T + (pos % T).long()  # row in a layer's (P*T, W) view
-    new_lens = lengths + 1
-    attn_fn = kops.paged_latent_attention if attn == "kernel" else kops.paged_latent_attention_ref
-    scale = Lmod.mla_softmax_scale(cfg)
-    table = Lmod.mla_rope_table(positions, cfg)  # every layer's rotary cos and sin
+    attend = (_latent_attention if cfg.is_mla else _kv_attention)(
+        cfg, pos, row, tables, new_lens, attn == "kernel")
     # the MLPs' context: B on the host gives the experts' capacity (sync-free)
-    ctx = Lmod.SeqCtx(positions=positions, moe_capacity_factor=Lmod.DECODE_CAPACITY_FACTOR)
+    ctx = Lmod.SeqCtx(positions=pos[:, None], moe_capacity_factor=Lmod.DECODE_CAPACITY_FACTOR)
     layer = 0
     for seg_params, (_, repeat) in zip(params["segments"], cfg.segments):
         for i in range(repeat):
             p = lm._index_tree(seg_params, i)[0]
-            pa = p["attn"]
-            q, lat = Lmod.mla_project(pa, rms_norm(h, p["ln1"], cfg.norm_eps), cfg, table)
-            pages = lat_pages[layer]
-            pages.view(P * T, W).index_copy_(0, row, lat[:, 0])
-            o_lat = attn_fn(Lmod.mla_absorb_q(q, pa["wkv_b"], cfg)[:, 0], pages, tables,
-                            new_lens, v_dim=r, scale=scale)
-            h = h + Lmod._out_proj(Lmod.mla_expand_o(o_lat[:, None], pa["wkv_b"], cfg),
-                                   pa["wo"])
-            hm = rms_norm(h, p["ln2"], cfg.norm_eps)
-            h = h + Lmod._mlp(p, hm, cfg, ctx)
+            h = h + attend(p["attn"], rms_norm(h, p["ln1"], cfg.norm_eps),
+                           *(buf[layer] for buf in pages))
+            h = h + Lmod._mlp(p, rms_norm(h, p["ln2"], cfg.norm_eps), cfg, ctx)
             layer += 1
     logits = lm.unembed(params, cfg, h)[:, 0]
     return logits, new_lens
+
+
+def _kv_attention(cfg: ModelConfig, pos, row, tables, new_lens, kernel: bool):
+    """A llama-style layer's attention over its (k, v) pages, (B, 1, D):
+    the step's rotary table is built once; each layer ropes q and k and
+    writes the K/V rows in one `rope_kv_write` call, then runs K1."""
+    B, hd = pos.shape[0], cfg.resolved_head_dim
+    rp = pos[None, :, None].expand(3, B, 1) if cfg.mrope_sections else pos[:, None]
+    # every layer's rotary cos and sin, (B, hd / 2) each
+    cos, sin = (t.reshape(B, hd // 2).contiguous()
+                for t in cmod.rope_table(rp, hd, cfg.rope_theta, cfg.mrope_sections))
+    attn_fn = kops.paged_attention if kernel else kops.paged_attention_ref
+    rope_kv = kops.rope_kv_write if kernel else kops.rope_kv_write_ref
+
+    def attend(pa, x, k_pages, v_pages):
+        q, k, v = Lmod._project_qkv(pa, x, cfg)
+        q = rope_kv(q[:, 0], k[:, 0], v[:, 0], cos, sin, row, k_pages, v_pages)
+        return Lmod._out_proj(attn_fn(q, k_pages, v_pages, tables, new_lens), pa["wo"])[:, None]
+    return attend
+
+
+def _latent_attention(cfg: ModelConfig, pos, row, tables, new_lens, kernel: bool):
+    """A latent-attention layer's attention over its latent pages
+    (P, T, 1, r + dr), (B, 1, D): the token's latent row [c | k_pe] goes to
+    its page, then the absorbed query attends through K1's latent mode
+    (`kernels.paged_latent_attention`) and the heads' outputs are expanded
+    from the latent ones."""
+    r = cfg.kv_lora_rank
+    scale = Lmod.mla_softmax_scale(cfg)
+    table = Lmod.mla_rope_table(pos[:, None], cfg)  # every layer's rotary cos and sin
+    attn_fn = kops.paged_latent_attention if kernel else kops.paged_latent_attention_ref
+
+    def attend(pa, x, pages):
+        q, lat = Lmod.mla_project(pa, x, cfg, table)
+        P, T, _, W = pages.shape
+        pages.view(P * T, W).index_copy_(0, row, lat[:, 0])
+        o_lat = attn_fn(Lmod.mla_absorb_q(q, pa["wkv_b"], cfg)[:, 0], pages, tables,
+                        new_lens, v_dim=r, scale=scale)
+        return Lmod._out_proj(Lmod.mla_expand_o(o_lat[:, None], pa["wkv_b"], cfg), pa["wo"])
+    return attend

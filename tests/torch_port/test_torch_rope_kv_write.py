@@ -6,7 +6,9 @@ kernel existed (`torch_port_helpers.chain_apply_rope`, `apply_rope` as it
 was, on q and on k at the step's positions, then one `index_copy_` of the
 roped k and one of v into the layer's pages).  The engine's paged decode
 logits are held the same way, against that earlier step
-(`torch_port_helpers.chain_step`).
+(`torch_port_helpers.chain_step`); a latent-attention model's, against its
+step as it was before the two formats shared one layer loop
+(`torch_port_helpers.chain_mla_step`).
 """
 import dataclasses
 
@@ -122,7 +124,7 @@ def test_wrapper_rejects_mis_shaped_inputs():
 
 # ------------------------------------------------------------ the engine
 TINY = {"deepseek-7b": {}, "qwen3-moe-30b-a3b": {}, "codeqwen1.5-7b": {},
-        "yi-9b": {"num_kv_heads": 1}, "qwen2-vl-7b": {}}
+        "yi-9b": {"num_kv_heads": 1}, "qwen2-vl-7b": {}, "deepseek-v2-lite": {}}
 
 
 def decode_logits(cfg, monkeypatch=None, steps=20):

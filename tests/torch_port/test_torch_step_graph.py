@@ -455,11 +455,10 @@ def test_a_new_tree_or_slab_is_a_new_key():
     tb = captured(eng, b, tb)
     assert (g.eager_steps, g.captures) == (2, 2)
     (key,) = g.live("m")
-    assert [t.data_ptr() for t in key.baked] == [b.slab.k_pages.data_ptr(),
-                                                 b.slab.v_pages.data_ptr()]
+    assert [t.data_ptr() for t in key.baked] == [t.data_ptr() for t in b.slab.pages]
     old = key.baked
     eng.start_instance("m", num_pages=128).finish()  # the slab grows, undropped
-    assert b.slab.k_pages.data_ptr() not in {t.data_ptr() for t in old}
+    assert b.slab.pages[0].data_ptr() not in {t.data_ptr() for t in old}
     captured(eng, b, tb)
     assert (g.eager_steps, g.captures) == (3, 3) and len(g.live("m")) == 2
     assert all(t.untyped_storage().nbytes() for t in old)  # still held by the old key

@@ -20,6 +20,7 @@ from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core.trace import Request  # noqa: E402
 from repro_torch.models.tensors import spec_records  # noqa: E402
 from repro_torch.obs import FlightRecorder, Tracer  # noqa: E402
+from repro_torch.obs import device_clock  # noqa: E402
 from repro_torch.obs.device_clock import PORT_SPANS, DeviceClock  # noqa: E402
 from repro_torch.serverless.gateway import Gateway, GatewayRecord  # noqa: E402
 from repro_torch.serving.engine import DataLoadStats, Engine  # noqa: E402
@@ -143,40 +144,69 @@ def test_untraced_creates_nothing_and_counts_the_same(traced, monkeypatch):
             == (gt.eager_steps, gt.captures, gt.replays) == (3, 3, 3 * (GEN - 1) + GEN))
 
 
+class FakeClock:
+    """`DeviceClock`'s host clock, driven by the test: it stands still
+    until a wait moves it, and a wait wakes `wake` seconds after the event
+    it waited for.  Its times are dyadic, so sums and differences of them
+    are exact."""
+
+    wake = 2.0 ** -12
+
+    def __init__(self, now: float = 1.0):
+        self.now = now
+
+    def perf_counter(self) -> float:
+        return self.now
+
+    def wait_until(self, t: float):
+        self.now = max(self.now, t) + self.wake
+
+
 class FakeEvent:
     """A timing event's double on a device whose clock runs `lag` seconds
-    behind the host's."""
+    behind the host's: the host clock `DeviceClock` reads (a `FakeClock`
+    where a test installs one)."""
 
-    lag = 0.002
+    lag = 2.0 ** -9
 
     def __init__(self):
-        self.t = time.perf_counter() + self.lag
+        self.t = device_clock._time.perf_counter() + self.lag
 
     def elapsed_time(self, later):
         return (later.t - self.t) * 1e3
 
     def synchronize(self):
-        while time.perf_counter() < self.t:
+        clock = device_clock._time
+        if isinstance(clock, FakeClock):
+            clock.wait_until(self.t)
+            return
+        while clock.perf_counter() < self.t:
             pass
 
 
-def test_device_clock_resolves_onto_the_host_clock():
+def test_device_clock_resolves_onto_the_host_clock(monkeypatch):
+    clock = FakeClock()
+    monkeypatch.setattr(device_clock, "_time", clock)
     tracer = Tracer()
-    clock = DeviceClock(tracer, "cpu", record=FakeEvent)
-    t0 = time.perf_counter()
-    clock.emit("decode.replay", t0, track="eng:x", args={"rid": 3, "model": "m"})
-    clock.emit("decode.replay", t0, track="eng:x", args={"rid": 3, "model": "m"})
-    assert tracer.events() == [] and len(clock._pending) == 2
-    clock.resolve()
+    dc = DeviceClock(tracer, "cpu", record=FakeEvent)
+    t0 = clock.now
+    dc.emit("decode.replay", t0, track="eng:x", args={"rid": 3, "model": "m"})
+    clock.now += 2.0 ** -11  # the host goes on before the second span ends
+    dc.emit("decode.replay", t0, track="eng:x", args={"rid": 3, "model": "m"})
+    assert tracer.events() == [] and len(dc._pending) == 2
+    dc.resolve()
     a, b = tracer.events()
-    assert len(clock._pending) == 0
-    assert a.args["rid"] == 3 and a.end >= a.begin == t0
+    assert len(dc._pending) == 0
+    assert a.args["rid"] == 3 and a.begin == b.begin == t0
+    assert (a.end, b.end) == (t0, t0 + 2.0 ** -11)
     # each `done` is its event's device time on the host clock (the device
-    # runs FakeEvent.lag behind the host), never before the event was reached
-    assert a.begin + FakeEvent.lag <= a.args["done"] <= b.args["done"] <= time.perf_counter()
-    assert a.args["done"] < a.end + FakeEvent.lag + 1e-3
-    clock.resolve()  # nothing pending: no anchor, nothing emitted
-    assert len(tracer.events()) == 2
+    # reaches an event `lag` after the host recorded it), late by exactly the
+    # wake-up of the one wait, never early
+    assert a.args["done"] == a.end + FakeEvent.lag + FakeClock.wake
+    assert b.args["done"] == b.end + FakeEvent.lag + FakeClock.wake
+    assert clock.now == b.end + FakeEvent.lag + FakeClock.wake
+    dc.resolve()  # nothing pending: no anchor, nothing emitted
+    assert len(tracer.events()) == 2 and clock.now == b.args["done"]
 
 
 def test_device_clock_on_the_cpu_emits_at_once():

@@ -1,6 +1,7 @@
 """Shared helpers for the port's parity tests: carry arrays between the JAX
 reference and the PyTorch port as numpy, in both directions; the paged
-decode step's rope and K/V write as they were before their kernel."""
+decode steps as they were before the rope + K/V write kernel and before
+the two formats shared one layer loop."""
 import itertools
 
 import numpy as np
@@ -138,10 +139,13 @@ def chain_apply_rope(x, positions, theta, mrope_sections=()):
     return out.to(x.dtype)
 
 
-def chain_step(params, cfg, token, tables, lengths, k_pages, v_pages, *, attn="kernel"):
+def chain_step(params, cfg, token, tables, lengths, pages, *, attn="kernel"):
     """The paged decode step of a llama-style model as it was before the
-    rope + K/V write kernel: two `apply_rope` and two `index_copy_` a layer."""
-    assert not cfg.is_mla
+    rope + K/V write kernel: two `apply_rope` and two `index_copy_` a layer.
+    A latent-attention model's step is `chain_mla_step`."""
+    if cfg.is_mla:
+        return chain_mla_step(params, cfg, token, tables, lengths, *pages, attn=attn)
+    k_pages, v_pages = pages
     B = token.shape[0]
     _, P, T, K, hd = k_pages.shape
     pos = lengths
@@ -169,5 +173,43 @@ def chain_step(params, cfg, token, tables, lengths, k_pages, v_pages, *, attn="k
         hm = rms_norm(h, p["ln2"], cfg.norm_eps)
         h = h + (Lmod.moe_forward(p["mlp"], hm, cfg, Lmod.DECODE_CAPACITY_FACTOR)
                  if cfg.is_moe else Lmod.mlp_forward(p["mlp"], hm))
+    logits = lm.unembed(params, cfg, h)[:, 0]
+    return logits, new_lens
+
+
+def chain_mla_step(params, cfg, token, tables, lengths, lat_pages, *, attn="kernel"):
+    """The paged decode step of a latent-attention model as it was when it
+    had a layer loop of its own: each layer writes the token's latent row
+    [c | k_pe] to its page, then attends in the absorbed form through K1's
+    latent mode over lat_pages (L, P, T, 1, r + dr)."""
+    B = token.shape[0]
+    _, P, T, _, W = lat_pages.shape
+    r = cfg.kv_lora_rank
+    pos = lengths
+    h = params["embed"][token][:, None, :]
+    positions = pos[:, None]
+    b_idx = torch.arange(B, device=token.device)
+    pbn = tables[b_idx, (pos // T).long()]
+    row = pbn.long() * T + (pos % T).long()
+    new_lens = lengths + 1
+    attn_fn = ops.paged_latent_attention if attn == "kernel" else ops.paged_latent_attention_ref
+    scale = Lmod.mla_softmax_scale(cfg)
+    table = Lmod.mla_rope_table(positions, cfg)
+    ctx = Lmod.SeqCtx(positions=positions, moe_capacity_factor=Lmod.DECODE_CAPACITY_FACTOR)
+    layer = 0
+    for seg_params, (_, repeat) in zip(params["segments"], cfg.segments):
+        for i in range(repeat):
+            p = lm._index_tree(seg_params, i)[0]
+            pa = p["attn"]
+            q, lat = Lmod.mla_project(pa, rms_norm(h, p["ln1"], cfg.norm_eps), cfg, table)
+            pages = lat_pages[layer]
+            pages.view(P * T, W).index_copy_(0, row, lat[:, 0])
+            o_lat = attn_fn(Lmod.mla_absorb_q(q, pa["wkv_b"], cfg)[:, 0], pages, tables,
+                            new_lens, v_dim=r, scale=scale)
+            h = h + Lmod._out_proj(Lmod.mla_expand_o(o_lat[:, None], pa["wkv_b"], cfg),
+                                   pa["wo"])
+            hm = rms_norm(h, p["ln2"], cfg.norm_eps)
+            h = h + Lmod._mlp(p, hm, cfg, ctx)
+            layer += 1
     logits = lm.unembed(params, cfg, h)[:, 0]
     return logits, new_lens
