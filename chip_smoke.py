@@ -494,6 +494,7 @@ def check_kernels() -> dict:
     dispatch_cost(main_args)
     rows.update(check_moe_experts())
     rows.update(check_rope_kv_write())
+    rows.update(check_add_rms_norm())
     rows.update(check_mla_kernels())
     return rows
 
@@ -668,11 +669,13 @@ def mla_phase(device="cuda") -> dict:
     n = MLA_PHASE_REQUESTS
     want = {"paged_attention.latent": MLA_LAYERS * MLA_PHASE_GEN * n,
             "flash_attention.split": MLA_LAYERS * n}
+    norms = (2 * MLA_LAYERS + 1) * MLA_PHASE_GEN * n  # 2 L + 1 a decode step
     log(f"[mla] {n} requests, prompt {MLA_PHASE_PROMPT}, {MLA_PHASE_GEN} tokens: launches {made}, "
         f"modes {modes}; graphs (eager, captures, replays) after each {graphs}")
     if (modes != want or made["paged_attention"] != want["paged_attention.latent"]
-            or made["rope_kv_write"]):
-        raise AssertionError(f"[mla] launches {made} {modes}, expected {want}")
+            or made["rope_kv_write"] or made["add_rms_norm"] != norms):
+        raise AssertionError(f"[mla] launches {made} {modes}, expected {want} and "
+                             f"{norms} of add_rms_norm")
     if graphs[1][:2] != graphs[0][:2] or graphs[2][:2] != graphs[0][:2]:
         raise AssertionError(f"[mla] a warm request made eager steps or captures: {graphs}")
     # the first decoded logits against the plain attention path
@@ -691,7 +694,8 @@ def mla_phase(device="cuda") -> dict:
         raise AssertionError(f"[mla] kernel path leaves the plain path: {err}")
     eng.close()
     return {MLA_MODEL: {"paged_attention": made["paged_attention"],
-                        "flash_attention": made["flash_attention"]}}
+                        "flash_attention": made["flash_attention"],
+                        "add_rms_norm": made["add_rms_norm"]}}
 
 
 def check_moe_experts() -> dict:
@@ -817,6 +821,75 @@ def check_rope_kv_write() -> dict:
             "name": "rope_kv_write", "route": "cuda",
             "source": "src/repro_torch/csrc/rope_kv_write.cu", "replaces": None,
             "shape": SHAPE_NOTES[label], **row_}
+    return rows
+
+
+def bf16_steps(a, b):
+    """Bfloat16 steps between `a` and `b`, element by element (0 for equal
+    bits; +0 and -0 equal)."""
+    import torch
+
+    def key(t):  # the bit patterns, ordered as the values are
+        bits = t.contiguous().view(torch.int16).int()
+        return torch.where(bits < 0, -(bits & 0x7FFF), bits)
+    return (key(a) - key(b)).abs()
+
+
+ADD_NORM_SHARE = 1e-3  # of the norm's elements a bfloat16 step off the chain's
+
+
+def check_add_rms_norm() -> dict:
+    """The paged decode step's add + RMSNorm against its plain version (the
+    chain of PyTorch kernels it replaced: the add, then `common.rms_norm`)
+    at every served width (D 2048, 3584, 4096), at B 1 and 4, with and
+    without the add: h + delta to the bit, the norm within one bfloat16
+    step an element, at most `ADD_NORM_SHARE` of them off (the kernel sums
+    the squares over D in another order).  Timed at every served model's
+    decode shape beside its bound (h and delta read, both outputs written,
+    the scale read).  No library call does its work.  Returns the timed
+    rows."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import add_rms_norm_ref
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    rows = {}
+    eps = 1e-6
+    # (label, B, D): the decode steps timed for K1 above, then the other
+    # batch of each served width
+    cases = [("main", 4, 2048), ("deepseek-7b", 1, 4096), ("qwen3-moe-30b-a3b", 1, 2048),
+             ("qwen2-vl-7b", 1, 3584), ("yi-9b", 1, 4096), ("codeqwen1.5-7b", 1, 4096),
+             (MLA_MODEL, 1, 2048), ("", 4, 3584), ("", 4, 4096), ("", 1, 2048)]
+    for label, B, D in cases:
+        h = (torch.randn((B, 1, D), generator=gen, device=dev) * 4).to(torch.bfloat16)
+        delta = (torch.randn((B, 1, D), generator=gen, device=dev) * 0.5).to(torch.bfloat16)
+        scale = torch.randn((D,), generator=gen, device=dev) * 0.1
+        err = 0.0
+        for d in (delta, None):
+            want_h, want_x = add_rms_norm_ref(h, d, scale, eps)
+            got_h, got_x = ops.add_rms_norm(h, d, scale, eps)
+            steps = bf16_steps(got_x, want_x)
+            err = max(err, float((got_x.float() - want_x.float()).abs().max()))
+            share = float((steps > 0).float().mean())
+            desc = f"bfloat16 B{B} D{D}" + ("" if d is not None else " norm only")
+            log(f"[kernel] add_rms_norm {desc}: h + delta bitwise {torch.equal(got_h, want_h)}; "
+                f"norm at most {int(steps.max())} bfloat16 step off, {share:.5f} of it")
+            if not (torch.equal(got_h, want_h) and int(steps.max()) <= 1
+                    and share <= ADD_NORM_SHARE):
+                raise AssertionError(f"add_rms_norm leaves its plain version at {desc}")
+        if not label:
+            continue
+        args = (h, delta, scale, eps)
+        nbytes = 4 * B * D * h.element_size() + D * scale.element_size()
+        row = _timing_row("add_rms_norm", f"{label} bfloat16 B{B} D{D}", "bfloat16",
+                          lambda: ops.add_rms_norm(*args), lambda: add_rms_norm_ref(*args),
+                          None, "", nbytes, 6 * B * D, err)
+        rows[("add_rms_norm", label)] = {
+            "name": "add_rms_norm", "route": "cuda",
+            "source": "src/repro_torch/csrc/add_rms_norm.cu", "replaces": None,
+            "shape": SHAPE_NOTES[label], **row}
     return rows
 
 
@@ -1018,6 +1091,7 @@ def main_path(cfg=None, device="cuda") -> dict:
     if cuda:  # CPU tensors run the plain versions and launch nothing
         assert counts["paged_attention"] == L * decode_dispatches, counts
         assert counts["rope_kv_write"] == L * decode_dispatches, counts
+        assert counts["add_rms_norm"] == (2 * L + 1) * decode_dispatches, counts
         assert counts["flash_attention"] == L * prefills, counts
 
     for i, lg in enumerate(step_logits):
@@ -1432,8 +1506,9 @@ def kernel_launches(cfg, requests: int, gen: int) -> dict:
     too), K1 and the rope + K/V write once per layer per decode step on the
     paged path only (the non-paged fallback decodes with the plain dense
     attention, as the reference does; a latent-attention model's paged step
-    writes its latent rows without the rope + K/V write), the routed
-    experts once per MoE layer per decode step on both paths."""
+    writes its latent rows without the rope + K/V write), the add + RMSNorm
+    2 L + 1 times a paged decode step, the routed experts once per MoE
+    layer per decode step on both paths."""
     from repro_torch.serving.engine import _is_paged_family
 
     flash = sum(k in ("attn", "swa") for k in cfg.pattern)
@@ -1443,9 +1518,11 @@ def kernel_launches(cfg, requests: int, gen: int) -> dict:
     # the routed experts: one call a MoE layer a decode step at B 1 (T * k < E)
     routed = (cfg.num_layers * gen if cfg.is_moe and cfg.experts_per_token < cfg.num_experts
               else 0)
+    norms = (2 * cfg.num_layers + 1) * gen if _is_paged_family(cfg) else 0
     return {"paged_attention": paged * requests, "flash_attention": flash * requests,
             "moe_experts": routed * requests,
-            "rope_kv_write": 0 if cfg.is_mla else paged * requests}
+            "rope_kv_write": 0 if cfg.is_mla else paged * requests,
+            "add_rms_norm": norms * requests}
 
 
 @contextlib.contextmanager
@@ -1923,7 +2000,8 @@ def trace_phase(cfg, weights, device="cuda") -> dict:
     if dev.type == "cuda":
         want = {"paged_attention": cfg.num_layers * TRACE_STEPS,
                 "flash_attention": cfg.num_layers, "moe_experts": 0,
-                "rope_kv_write": cfg.num_layers * TRACE_STEPS}
+                "rope_kv_write": cfg.num_layers * TRACE_STEPS,
+                "add_rms_norm": (2 * cfg.num_layers + 1) * TRACE_STEPS}
         assert counts == want, (counts, want)
     return counts
 
@@ -2090,7 +2168,8 @@ def graphs_phase(cfg, weights, device="cuda") -> dict:
     if cuda:
         assert eager["launches"] == {"paged_attention": L * dispatches,
                                      "flash_attention": 2 * L, "moe_experts": 0,
-                                     "rope_kv_write": L * dispatches}, eager["launches"]
+                                     "rope_kv_write": L * dispatches,
+                                     "add_rms_norm": (2 * L + 1) * dispatches}, eager["launches"]
     bitwise, worst, flips = 0, 0.0, 0
     for i, (e, gr) in enumerate(zip(eager["logits"], graphed["logits"])):
         assert e.shape == gr.shape and bool(torch.isfinite(gr.float()).all()), i
@@ -3374,7 +3453,7 @@ def train_phase(device="cuda", smoke=False):
     counts = ops.launch_counts()
     log(f"[train] (e) kernel launches over the phase: {counts}")
     assert counts == {"paged_attention": 0, "flash_attention": 0, "moe_experts": 0,
-                      "rope_kv_write": 0}, counts
+                      "rope_kv_write": 0, "add_rms_norm": 0}, counts
     if torch.device(device).type == "cuda":
         release_memory()
 

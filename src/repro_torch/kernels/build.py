@@ -22,7 +22,8 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo")
-SOURCES = ("paged_attention", "flash_attention", "moe_experts", "rope_kv_write")
+SOURCES = ("paged_attention", "flash_attention", "moe_experts", "rope_kv_write",
+           "add_rms_norm")
 
 
 class KernelBuildError(RuntimeError):

@@ -8,18 +8,20 @@ from __future__ import annotations
 
 from typing import Any, Callable
 
+from repro_torch.kernels.add_rms_norm import add_rms_norm  # noqa: F401
 from repro_torch.kernels.flash_attention import flash_attention  # noqa: F401
 from repro_torch.kernels.moe_experts import moe_experts  # noqa: F401
 from repro_torch.kernels.paged_attention import (paged_attention,  # noqa: F401
                                                 paged_latent_attention)
-from repro_torch.kernels.ref import (flash_attention_ref, moe_experts_ref,  # noqa: F401
-                                     paged_attention_ref, paged_latent_attention_ref,
-                                     rope_kv_write_ref)
+from repro_torch.kernels.ref import (add_rms_norm_ref, flash_attention_ref,  # noqa: F401
+                                     moe_experts_ref, paged_attention_ref,
+                                     paged_latent_attention_ref, rope_kv_write_ref)
 from repro_torch.kernels.rope_kv_write import rope_kv_write  # noqa: F401
 
 # every kernel wrapper of the port (each carries a `.launches` counter)
 KERNELS = {"paged_attention": paged_attention, "flash_attention": flash_attention,
-           "moe_experts": moe_experts, "rope_kv_write": rope_kv_write}
+           "moe_experts": moe_experts, "rope_kv_write": rope_kv_write,
+           "add_rms_norm": add_rms_norm}
 # calls of a kernel in one of its modes, counted again beside its `.launches`:
 # name -> (the wrapper, the attribute); K1's latent mode (MLA decode) and K2
 # at split q/k and v widths (MLA prefill)

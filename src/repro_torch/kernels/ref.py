@@ -1,14 +1,15 @@
 """Plain PyTorch versions of the kernels (port of `repro/kernels/ref.py`,
-and `moe_experts_ref` and `rope_kv_write_ref`, which have no reference
-kernel).
+and `moe_experts_ref`, `rope_kv_write_ref` and `add_rms_norm_ref`, which
+have no reference kernel).
 
 `paged_attention_ref` / `flash_attention_ref` / `moe_experts_ref` /
-`rope_kv_write_ref` define what the CUDA kernels compute, run for CPU
-tensors, and are what the kernels are held against on the card.  Same
-casts as the reference oracles: scores in fp32, probabilities cast to
-q.dtype before the V product; the experts round where the slot dispatch
-(`models.layers.moe_forward`) rounds; the rotary embedding rounds as
-`models.common.rope_apply` does.
+`rope_kv_write_ref` / `add_rms_norm_ref` define what the CUDA kernels
+compute, run for CPU tensors, and are what the kernels are held against on
+the card.  Same casts as the reference oracles: scores in fp32,
+probabilities cast to q.dtype before the V product; the experts round where
+the slot dispatch (`models.layers.moe_forward`) rounds; the rotary
+embedding rounds as `models.common.rope_apply` does; the norm is
+`models.common.rms_norm`.
 """
 from __future__ import annotations
 
@@ -16,6 +17,8 @@ import math
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.models.common import rms_norm
 
 F32 = torch.float32
 
@@ -146,3 +149,15 @@ def rope_kv_write_ref(q, k, v, cos, sin, row, k_pages, v_pages):
     k_pages.view(P * T, K, hd).index_copy_(0, row, rope(k))
     v_pages.view(P * T, K, hd).index_copy_(0, row, v)
     return rope(q)
+
+
+def add_rms_norm_ref(h, delta, scale, eps):
+    """The residual add and the RMSNorm after it: `h + delta` (`h` itself
+    where `delta` is None), then `models.common.rms_norm` of the sum.
+
+    h, delta: (B, S, D)   the residual stream and a sub-block's output
+    scale:    (D,) fp32   the norm's scale (applied as 1 + scale)
+    Returns (h + delta, rms_norm(h + delta, scale, eps)).
+    """
+    h_new = h if delta is None else h + delta
+    return h_new, rms_norm(h_new, scale, eps)

@@ -81,7 +81,7 @@ from repro_torch.kernels import ops as kops
 from repro_torch.models import build_model, lm
 from repro_torch.models import common as cmod
 from repro_torch.models import layers as Lmod
-from repro_torch.models.common import resolve_device, rms_norm
+from repro_torch.models.common import resolve_device
 from repro_torch.models.tensors import (HostTensorStore, ModelSpec, PersistentStore,
                                         StoreError, TensorRecord, VariantSpec,
                                         flatten_params, tensor_records,
@@ -1980,8 +1980,11 @@ def _paged_decode_step(params, cfg: ModelConfig, token, tables, lengths, pages, 
     `lengths + 1` (the kernels' plain versions where `attn` is "ref").  One
     layer loop over every segment; only the attention sub-block follows the
     slab's format (`_kv_attention`, `_latent_attention`), and every layer's
-    MLP is `layers._mlp`.  Returns (logits, lengths + 1) — lengths advance
-    on device so the caller never syncs.
+    MLP is `layers._mlp`.  Each residual add and the RMSNorm after it are
+    one `add_rms_norm` call: one norm-only call on the embedding, then one
+    after each sub-block, the last with the final norm, whose output the
+    head multiplies (2 L + 1 calls a step).  Returns (logits, lengths + 1)
+    — lengths advance on device so the caller never syncs.
     """
     B = token.shape[0]
     T = pages[0].shape[2]
@@ -1995,16 +1998,19 @@ def _paged_decode_step(params, cfg: ModelConfig, token, tables, lengths, pages, 
         cfg, pos, row, tables, new_lens, attn == "kernel")
     # the MLPs' context: B on the host gives the experts' capacity (sync-free)
     ctx = Lmod.SeqCtx(positions=pos[:, None], moe_capacity_factor=Lmod.DECODE_CAPACITY_FACTOR)
-    layer = 0
-    for seg_params, (_, repeat) in zip(params["segments"], cfg.segments):
-        for i in range(repeat):
-            p = lm._index_tree(seg_params, i)[0]
-            h = h + attend(p["attn"], rms_norm(h, p["ln1"], cfg.norm_eps),
-                           *(buf[layer] for buf in pages))
-            h = h + Lmod._mlp(p, rms_norm(h, p["ln2"], cfg.norm_eps), cfg, ctx)
-            layer += 1
-    logits = lm.unembed(params, cfg, h)[:, 0]
-    return logits, new_lens
+    norm = kops.add_rms_norm if attn == "kernel" else kops.add_rms_norm_ref
+    eps = cfg.norm_eps
+    layers = [lm._index_tree(seg_params, i)[0]
+              for seg_params, (_, repeat) in zip(params["segments"], cfg.segments)
+              for i in range(repeat)]
+    # each MLP's sum is normalised by the next layer's ln1, the last by the final norm
+    after = [p["ln1"] for p in layers[1:]] + [params["final_norm"]]
+    h, x = norm(h, None, layers[0]["ln1"], eps)
+    for layer, (p, ln_next) in enumerate(zip(layers, after)):
+        h, x = norm(h, attend(p["attn"], x, *(buf[layer] for buf in pages)), p["ln2"], eps)
+        h, x = norm(h, Lmod._mlp(p, x, cfg, ctx), ln_next, eps)
+    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    return (x @ head)[:, 0], new_lens
 
 
 def _kv_attention(cfg: ModelConfig, pos, row, tables, new_lens, kernel: bool):

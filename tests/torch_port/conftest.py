@@ -3,9 +3,18 @@
 Registers the `cuda` marker and the `cuda_device` fixture: a test that needs
 the card takes the fixture, which skips it (with a reason) when no CUDA
 device is present.  The decision is made when the test runs, never while a
-module is imported, so every worker collects the same tests.
+module is imported, so every worker collects the same tests.  Keeps JAX,
+the reference, on the CPU.
 """
+import os
+
 import pytest
+
+# JAX is the CPU reference of these tests.  On a machine with a card (whose
+# environment may name it among JAX's platforms), a test module that imports
+# JAX would otherwise have it take 75 % of the card's memory at its first
+# array, beside the port's tests that run there.
+os.environ["JAX_PLATFORMS"] = "cpu"
 
 
 def pytest_configure(config):

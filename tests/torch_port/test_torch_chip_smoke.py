@@ -60,7 +60,7 @@ def test_main_path_rehearses_on_cpu(monkeypatch):
                               num_layers=2, d_model=128, d_ff=256, vocab_size=512)
     counts = cs.main_path(cfg, "cpu")
     assert counts == {"paged_attention": 0, "flash_attention": 0,  # CPU: plain versions
-                      "moe_experts": 0, "rope_kv_write": 0}
+                      "moe_experts": 0, "rope_kv_write": 0, "add_rms_norm": 0}
 
 
 TINY = dict(num_layers=2, d_model=128, d_ff=256, vocab_size=512, num_heads=4,
@@ -111,7 +111,8 @@ def test_serverless_phase_rehearses_on_cpu(monkeypatch):
     n = Counter(r.model_id for r in trace)
     assert per_model == {m: {"paged_attention": c.num_layers * 4 * n[m],
                              "flash_attention": c.num_layers * n[m], "moe_experts": 0,
-                             "rope_kv_write": c.num_layers * 4 * n[m]}
+                             "rope_kv_write": c.num_layers * 4 * n[m],
+                             "add_rms_norm": (2 * c.num_layers + 1) * 4 * n[m]}
                          for m, c in cfgs.items()}
 
 
@@ -190,7 +191,8 @@ def test_families_phase_rehearses_on_cpu(monkeypatch):
     assert per_model == {m: {"paged_attention": c.num_layers * 4 * n[m],
                              "flash_attention": c.num_layers * n[m],
                              "moe_experts": c.num_layers * 4 * n[m] * c.is_moe,
-                             "rope_kv_write": c.num_layers * 4 * n[m]}
+                             "rope_kv_write": c.num_layers * 4 * n[m],
+                             "add_rms_norm": (2 * c.num_layers + 1) * 4 * n[m]}
                          for m, c in cfgs.items()}
 
 
@@ -293,14 +295,15 @@ def rehearse_state_families(monkeypatch):
     moe = {m: cfgs[m].num_layers if cfgs[m].is_moe else 0 for m in cfgs}
     probe = inspect.signature(cs.long_prompt_probe).parameters["steps"].default
     assert per_model == {**{m: {"paged_attention": 0, "flash_attention": attn[m] * n[m],
-                                "moe_experts": moe[m] * 4 * n[m], "rope_kv_write": 0}
+                                "moe_experts": moe[m] * 4 * n[m], "rope_kv_write": 0,
+                                "add_rms_norm": 0}
                             for m in cfgs},
                          "recurrentgemma-9b long": {"paged_attention": 0,
                                                     "flash_attention": 2, "moe_experts": 0,
-                                                    "rope_kv_write": 0},
+                                                    "rope_kv_write": 0, "add_rms_norm": 0},
                          "mixtral-8x7b long": {"paged_attention": 0, "flash_attention": 6,
                                                "moe_experts": moe["mixtral-8x7b"] * probe,
-                                               "rope_kv_write": 0}}
+                                               "rope_kv_write": 0, "add_rms_norm": 0}}
 
 
 def test_train_phase_rehearses_on_cpu(monkeypatch, tmp_path, capsys):
@@ -320,7 +323,8 @@ def test_train_phase_rehearses_on_cpu(monkeypatch, tmp_path, capsys):
                  "(d) remat on vs off", "34 of 34 leaves bitwise equal",
                  "scatter vs gshard", "grouped vs gshard", "resumed from step 6",
                  "(e) kernel launches over the phase: {'paged_attention': 0, "
-                 "'flash_attention': 0, 'moe_experts': 0, 'rope_kv_write': 0}"):
+                 "'flash_attention': 0, 'moe_experts': 0, 'rope_kv_write': 0, "
+                 "'add_rms_norm': 0}"):
         assert line in out, line
     assert not (tmp_path / "build" / "train_ckpt").exists()
 
@@ -337,7 +341,7 @@ def test_trace_phase_rehearses_on_cpu(monkeypatch, tmp_path):
     cfgs, weights = tiny_models(cs)
     counts = cs.trace_phase(cfgs["llama3.2-1b"], weights["llama3.2-1b"], "cpu")
     assert counts == {"paged_attention": 0, "flash_attention": 0,  # CPU: plain versions
-                      "moe_experts": 0, "rope_kv_write": 0}
+                      "moe_experts": 0, "rope_kv_write": 0, "add_rms_norm": 0}
     doc = json.loads((tmp_path / "trace" / "llama3.2-1b.json").read_text())
     assert sum(e["ph"] == "X" for e in doc["traceEvents"]) > 10
 
@@ -361,7 +365,7 @@ def test_graphs_phase_rehearses_on_cpu(monkeypatch, capture):
     L = cfgs["llama3.2-1b"].num_layers
     assert out["eager"]["launches"] == out["graphed"]["launches"] == {
         "paged_attention": L * 2 * 8, "flash_attention": L * 2, "moe_experts": 0,
-        "rope_kv_write": L * 2 * 8}
+        "rope_kv_write": L * 2 * 8, "add_rms_norm": (2 * L + 1) * 2 * 8}
 
 
 def test_examples_phase_rehearses_on_cpu(monkeypatch, tmp_path):
@@ -400,7 +404,8 @@ def test_dense_phase_rehearses_on_cpu(monkeypatch):
     n = Counter(r.model_id for r in trace)
     assert per_model == {m: {"paged_attention": c.num_layers * 4 * n[m],
                              "flash_attention": c.num_layers * n[m], "moe_experts": 0,
-                             "rope_kv_write": c.num_layers * 4 * n[m]}
+                             "rope_kv_write": c.num_layers * 4 * n[m],
+                             "add_rms_norm": (2 * c.num_layers + 1) * 4 * n[m]}
                          for m, c in cfgs.items()}
 
 
@@ -430,5 +435,5 @@ def test_distributed_phase_rehearses_on_cpu():
                  "elastic checkpoint of",
                  "dryrun llama3.2-1b|decode_32k|single: bottleneck",
                  "kernel launches over the phase: {'paged_attention': 0, 'flash_attention': 0, "
-                 "'moe_experts': 0, 'rope_kv_write': 0}"):
+                 "'moe_experts': 0, 'rope_kv_write': 0, 'add_rms_norm': 0}"):
         assert line in out.stdout, line

@@ -173,8 +173,12 @@ def test_cpu_tensors_run_the_plain_version_and_launch_nothing():
     pages = [x.clone() for x in rx[-2:]]
     assert torch.equal(ops.rope_kv_write(*rx), ops.rope_kv_write_ref(*rx[:-2], *pages))
     assert all(torch.equal(a, b) for a, b in zip(rx[-2:], pages))
+    nx = (torch.randn((3, 1, 64), generator=g).to(torch.bfloat16),
+          torch.randn((3, 1, 64), generator=g).to(torch.bfloat16), torch.randn(64, generator=g))
+    assert all(torch.equal(a, b) for a, b in zip(ops.add_rms_norm(*nx, 1e-6),
+                                                 ops.add_rms_norm_ref(*nx, 1e-6)))
     assert ops.launch_counts() == {"paged_attention": 0, "flash_attention": 0,
-                                  "moe_experts": 0, "rope_kv_write": 0}
+                                  "moe_experts": 0, "rope_kv_write": 0, "add_rms_norm": 0}
 
 
 def test_wrapper_input_checks_reject_what_the_kernel_cannot_take():

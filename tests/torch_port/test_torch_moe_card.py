@@ -114,7 +114,7 @@ def test_decode_step_graphed_equals_eager_and_counts_launches(cuda_device):
         torch.cuda.synchronize()
         prefill = {k: n - before[k] for k, n in ops.launch_counts().items()}
         assert prefill == {"paged_attention": 0, "flash_attention": cfg.num_layers,
-                           "moe_experts": 0, "rope_kv_write": 0}, prefill
+                           "moe_experts": 0, "rope_kv_write": 0, "add_rms_norm": 0}, prefill
         tok = logits[0].argmax(-1).to(torch.int32)
         per_step = []
         for _ in range(steps):

@@ -18,9 +18,12 @@ that has only PyTorch:
   codeqwen1.5-7b and qwen2-vl-7b at smoke width: the paged decode step,
   eager, captured and replayed, gives logits equal to the bit to those of
   the step as it was before the kernel (`torch_port_helpers.chain_step`,
-  eager), and every step, replays included, counts one launch a layer.
+  eager, its adds and norms by the step's own `ops.add_rms_norm`, so that
+  the comparison sees the rope and the K/V write alone), and every step,
+  replays included, counts one launch a layer.
 """
 import dataclasses
+import functools
 
 import pytest
 
@@ -135,7 +138,8 @@ def engine_run(cfg, graphed, chain, monkeypatch):
     """Prefill 3 prompts of mixed lengths and decode STEPS greedy steps fed
     the same tokens; the logits and each step's launches of the kernel."""
     if chain:
-        monkeypatch.setattr(engine_mod, "_paged_decode_step", chain_step)
+        monkeypatch.setattr(engine_mod, "_paged_decode_step",
+                            functools.partial(chain_step, norm=ops.add_rms_norm))
     eng = Engine(8 << 30, cuda_graphs=graphed, engine_id=f"{graphed}-{chain}")
     eng.register(cfg.name, cfg)  # crc32-seeded weights: the same on every engine
     eng.load(cfg.name)

@@ -59,9 +59,9 @@ def greedy(logits):
 
 @pytest.fixture
 def counted_k1(monkeypatch):
-    """K1's and the rope + K/V write's CPU paths counted as the CUDA
-    wrappers count a launch."""
-    for name in ("paged_attention", "rope_kv_write"):
+    """K1's, the rope + K/V write's and the add + RMSNorm's CPU paths
+    counted as the CUDA wrappers count a launch."""
+    for name in ("paged_attention", "rope_kv_write", "add_rms_norm"):
         real = getattr(ops, name)
 
         def counted(*args, _real=real):
@@ -173,8 +173,11 @@ def test_launch_counts_and_logits_equal_to_eager(counted_k1):
     assert eng.step_graphs.replays > 20
     assert graphed_counts == eager_counts
     fused = 6  # one K1 call a layer for both instances, else one each
-    assert eager_counts["paged_attention"] == 2 * (2 * (20 - fused) + fused)
+    layers, dispatches = 2, 2 * (20 - fused) + fused
+    assert eager_counts["paged_attention"] == layers * dispatches
     assert eager_counts["rope_kv_write"] == eager_counts["paged_attention"]
+    # one norm-only call on the embedding, then one after each sub-block
+    assert eager_counts["add_rms_norm"] == (2 * layers + 1) * dispatches
     for e, g in zip(eager, graphed):
         assert torch.equal(e, g)
 

@@ -165,7 +165,9 @@ def test_launch_counts_equal_eager(runs):
     want = {"paged_attention": cfg.num_layers * (STEPS + FUSED),
             "flash_attention": cfg.num_layers * 2,
             "moe_experts": cfg.num_layers * STEPS if cfg.is_moe else 0,
-            "rope_kv_write": cfg.num_layers * (STEPS + FUSED)}
+            "rope_kv_write": cfg.num_layers * (STEPS + FUSED),
+            # a norm-only call on the embedding, then one after each sub-block
+            "add_rms_norm": (2 * cfg.num_layers + 1) * (STEPS + FUSED)}
     assert out["eager"]["launches"] == out["graphed"]["launches"] == want
 
 

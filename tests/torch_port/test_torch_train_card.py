@@ -72,7 +72,8 @@ def test_training_step_matches_the_cpu(fp32_matmuls, name):
         _, _, loss2, metrics = train_step(model, p, init_opt_state(p), batch,
                                           AdamWConfig(lr=1e-3, warmup_steps=10))
         assert ops.launch_counts() == {"paged_attention": 0, "flash_attention": 0,
-                                      "moe_experts": 0, "rope_kv_write": 0}
+                                      "moe_experts": 0, "rope_kv_write": 0,
+                                      "add_rms_norm": 0}
         assert float(loss2) == float(loss)
         out[str(d)] = (float(loss), float(metrics["grad_norm"]), _to(grads, "cpu"))
     (lc, nc, gc), (lg, ng, gg) = out["cpu"], out[str(dev)]

@@ -1,7 +1,9 @@
 """Shared helpers for the port's parity tests: carry arrays between the JAX
 reference and the PyTorch port as numpy, in both directions; the paged
 decode steps as they were before the rope + K/V write kernel and before
-the two formats shared one layer loop."""
+the two formats shared one layer loop, each with its residual adds and
+norms by a `norm` function given to it (by default the chain of PyTorch
+kernels the step ran before the add + RMSNorm kernel)."""
 import itertools
 
 import numpy as np
@@ -139,12 +141,31 @@ def chain_apply_rope(x, positions, theta, mrope_sections=()):
     return out.to(x.dtype)
 
 
-def chain_step(params, cfg, token, tables, lengths, pages, *, attn="kernel"):
+def chain_add_norm(h, delta, scale, eps):
+    """The residual add and the `rms_norm` after it as the paged step ran
+    them before `ops.add_rms_norm`: separate PyTorch kernels.  Returns
+    (h + delta, the norm of it); `h` itself where `delta` is None."""
+    h = h if delta is None else h + delta
+    return h, rms_norm(h, scale, eps)
+
+
+def _after_norms(params, layers):
+    """The scale of the norm after each layer's MLP: the next layer's ln1,
+    the last layer's the final norm."""
+    return [p["ln1"] for p in layers[1:]] + [params["final_norm"]]
+
+
+def chain_step(params, cfg, token, tables, lengths, pages, *, attn="kernel",
+               norm=chain_add_norm):
     """The paged decode step of a llama-style model as it was before the
     rope + K/V write kernel: two `apply_rope` and two `index_copy_` a layer.
-    A latent-attention model's step is `chain_mla_step`."""
+    A latent-attention model's step is `chain_mla_step`.  `norm(h, delta,
+    scale, eps)` adds and normalises (`chain_add_norm`, or the step's own
+    `ops.add_rms_norm`, so that a comparison on the card sees the rope and
+    the K/V write alone)."""
     if cfg.is_mla:
-        return chain_mla_step(params, cfg, token, tables, lengths, *pages, attn=attn)
+        return chain_mla_step(params, cfg, token, tables, lengths, *pages, attn=attn,
+                              norm=norm)
     k_pages, v_pages = pages
     B = token.shape[0]
     _, P, T, K, hd = k_pages.shape
@@ -159,9 +180,9 @@ def chain_step(params, cfg, token, tables, lengths, pages, *, attn="kernel"):
     row = pbn.long() * T + (pos % T).long()
     new_lens = lengths + 1
     attn_fn = ops.paged_attention if attn == "kernel" else ops.paged_attention_ref
-    for l in range(k_pages.shape[0]):
-        p = lm._index_tree(seg_params, l)[0]
-        hn = rms_norm(h, p["ln1"], cfg.norm_eps)
+    layers = [lm._index_tree(seg_params, l)[0] for l in range(k_pages.shape[0])]
+    h, hn = norm(h, None, layers[0]["ln1"], cfg.norm_eps)
+    for l, (p, ln_next) in enumerate(zip(layers, _after_norms(params, layers))):
         q, knew, vnew = Lmod._project_qkv(p["attn"], hn, cfg)
         q = chain_apply_rope(q, rp, cfg.rope_theta, cfg.mrope_sections)
         knew = chain_apply_rope(knew, rp, cfg.rope_theta, cfg.mrope_sections)
@@ -169,19 +190,22 @@ def chain_step(params, cfg, token, tables, lengths, pages, *, attn="kernel"):
         kp_l.view(P * T, K, hd).index_copy_(0, row, knew[:, 0])
         vp_l.view(P * T, K, hd).index_copy_(0, row, vnew[:, 0])
         o = attn_fn(q[:, 0], kp_l, vp_l, tables, new_lens)
-        h = h + Lmod._out_proj(o, p["attn"]["wo"])[:, None, :]
-        hm = rms_norm(h, p["ln2"], cfg.norm_eps)
-        h = h + (Lmod.moe_forward(p["mlp"], hm, cfg, Lmod.DECODE_CAPACITY_FACTOR)
-                 if cfg.is_moe else Lmod.mlp_forward(p["mlp"], hm))
-    logits = lm.unembed(params, cfg, h)[:, 0]
-    return logits, new_lens
+        h, hm = norm(h, Lmod._out_proj(o, p["attn"]["wo"])[:, None, :], p["ln2"],
+                     cfg.norm_eps)
+        h, hn = norm(h, (Lmod.moe_forward(p["mlp"], hm, cfg, Lmod.DECODE_CAPACITY_FACTOR)
+                         if cfg.is_moe else Lmod.mlp_forward(p["mlp"], hm)),
+                     ln_next, cfg.norm_eps)
+    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    return (hn @ head)[:, 0], new_lens
 
 
-def chain_mla_step(params, cfg, token, tables, lengths, lat_pages, *, attn="kernel"):
+def chain_mla_step(params, cfg, token, tables, lengths, lat_pages, *, attn="kernel",
+                   norm=chain_add_norm):
     """The paged decode step of a latent-attention model as it was when it
     had a layer loop of its own: each layer writes the token's latent row
     [c | k_pe] to its page, then attends in the absorbed form through K1's
-    latent mode over lat_pages (L, P, T, 1, r + dr)."""
+    latent mode over lat_pages (L, P, T, 1, r + dr).  `norm` as in
+    `chain_step`."""
     B = token.shape[0]
     _, P, T, _, W = lat_pages.shape
     r = cfg.kv_lora_rank
@@ -196,20 +220,19 @@ def chain_mla_step(params, cfg, token, tables, lengths, lat_pages, *, attn="kern
     scale = Lmod.mla_softmax_scale(cfg)
     table = Lmod.mla_rope_table(positions, cfg)
     ctx = Lmod.SeqCtx(positions=positions, moe_capacity_factor=Lmod.DECODE_CAPACITY_FACTOR)
-    layer = 0
-    for seg_params, (_, repeat) in zip(params["segments"], cfg.segments):
-        for i in range(repeat):
-            p = lm._index_tree(seg_params, i)[0]
-            pa = p["attn"]
-            q, lat = Lmod.mla_project(pa, rms_norm(h, p["ln1"], cfg.norm_eps), cfg, table)
-            pages = lat_pages[layer]
-            pages.view(P * T, W).index_copy_(0, row, lat[:, 0])
-            o_lat = attn_fn(Lmod.mla_absorb_q(q, pa["wkv_b"], cfg)[:, 0], pages, tables,
-                            new_lens, v_dim=r, scale=scale)
-            h = h + Lmod._out_proj(Lmod.mla_expand_o(o_lat[:, None], pa["wkv_b"], cfg),
-                                   pa["wo"])
-            hm = rms_norm(h, p["ln2"], cfg.norm_eps)
-            h = h + Lmod._mlp(p, hm, cfg, ctx)
-            layer += 1
-    logits = lm.unembed(params, cfg, h)[:, 0]
-    return logits, new_lens
+    layers = [lm._index_tree(seg_params, i)[0]
+              for seg_params, (_, repeat) in zip(params["segments"], cfg.segments)
+              for i in range(repeat)]
+    h, hn = norm(h, None, layers[0]["ln1"], cfg.norm_eps)
+    for layer, (p, ln_next) in enumerate(zip(layers, _after_norms(params, layers))):
+        pa = p["attn"]
+        q, lat = Lmod.mla_project(pa, hn, cfg, table)
+        pages = lat_pages[layer]
+        pages.view(P * T, W).index_copy_(0, row, lat[:, 0])
+        o_lat = attn_fn(Lmod.mla_absorb_q(q, pa["wkv_b"], cfg)[:, 0], pages, tables,
+                        new_lens, v_dim=r, scale=scale)
+        h, hm = norm(h, Lmod._out_proj(Lmod.mla_expand_o(o_lat[:, None], pa["wkv_b"], cfg),
+                                       pa["wo"]), p["ln2"], cfg.norm_eps)
+        h, hn = norm(h, Lmod._mlp(p, hm, cfg, ctx), ln_next, cfg.norm_eps)
+    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    return (hn @ head)[:, 0], new_lens
